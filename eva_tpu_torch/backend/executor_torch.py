@@ -1,23 +1,32 @@
 """Whole-graph PyTorch executor: runs a compiled EVA program over int64
 limb-plane tensors on one torch device.
 
-Port of the single-device, structured-key-switch part of
-eva_tpu/backend/executor_jax.py. The JAX package traces the DAG into one
-jitted function; PyTorch runs eagerly, so `_traced` here simply walks the
-DAG and launches each op. Every rescale, relinearization and rotation
-runs the negacyclic NTT (tables.DeviceLevelOps.ntt/intt: the CUDA kernels
-on a GPU). The key switch is the structured one of the JAX package
-(digits by fast base extension, an inner product with keys in the
-matching own/foreign/key row layout, then iNTT + P-division + NTT); it
-gives ciphertexts bit-identical to the fused TPU kernels.
+Port of the single-device part of eva_tpu/backend/executor_jax.py. The
+JAX package traces the DAG into one jitted function; PyTorch runs
+eagerly, so `_traced` here simply walks the DAG and launches each op.
+Every rescale, relinearization and rotation runs the negacyclic NTT
+(tables.DeviceLevelOps.ntt/intt: the CUDA kernels on a GPU).
+
+Key switching takes the JAX package's TPU branches: relinearizations,
+non-hoisted rotations and both fused relin/rescale pairs run the fused
+key switch (ks.ks_mac + ks.ks_epilogue: two CUDA kernels on a GPU), and
+every P-division, including the one each hoisted rotation sum pays, runs
+the fused epilogue. Hoisted rotations share one digit decomposition in
+the structured (own/foreign/key) row layout and MAC it against
+inverse-permuted keys. EVA_TPU_NO_FUSED_KS=1 (the JAX package's switch)
+selects the structured key switch everywhere instead: digits, MAC
+against the structured key layout, then iNTT + P-division + NTT. Both
+give ciphertexts bit-identical to the JAX package.
 
 Host/device split follows the protocol roles: encode/encrypt/decrypt are
-host-side numpy; `execute` (server role) is this module. Raw subgraphs
-stay host-side.
+host-side numpy; `execute` (server role) is this module, one valuation
+at a time (`run`), a batch stacked on a leading axis (`run_batched`), or
+a stream with the next execution enqueued before the last one's outputs
+are fetched (`run_pipelined`). Raw subgraphs stay host-side.
 
 Not ported yet (a program that needs them raises NotImplementedError):
-sharded big vectors (vec_size > N/2), batched and pipelined execution,
-and mesh (multi-device) execution."""
+sharded big vectors (vec_size > N/2) and mesh (multi-device)
+execution."""
 
 from __future__ import annotations
 
@@ -36,54 +45,14 @@ from ..ir import ROTATION, Op, Program, Term, Type
 from ..passes import rotation_hoist_sources
 from . import resolve_device
 from .modmath import to_mont, to_mont_rows as _to_mont_rows
-from .tables import DeviceLevelOps
-
-_LEVEL_OPS_CACHE: Dict[Tuple, DeviceLevelOps] = {}
-
-
-def level_ops(primes: List[int], n: int, device=None) -> DeviceLevelOps:
-    # n MUST be part of the key: the same prime can serve two ring sizes
-    # (q = 1 mod 2*16384 implies q = 1 mod 2*8192). The device too: the
-    # tables live on it.
-    device = resolve_device(device)
-    key = (tuple(primes), n, device)
-    if key not in _LEVEL_OPS_CACHE:
-        _LEVEL_OPS_CACHE[key] = DeviceLevelOps(primes, n, device)
-    return _LEVEL_OPS_CACHE[key]
+from .ks import MAX_KEY_PRIMES, divide_last_planes, ks_epilogue, ks_mac
+from .tables import DeviceLevelOps, level_ops
 
 
 def _to_dev(arr: np.ndarray, device) -> torch.Tensor:
     """Host residues (uint64/uint32, < 2^32) -> int64 tensor on device."""
     return torch.from_numpy(
         np.ascontiguousarray(arr).astype(np.int64)).to(device)
-
-
-def divide_last_planes(coeffs, primes: List[int], dev: DeviceLevelOps):
-    """Divide-and-round coefficient planes by the last prime.
-
-    r_i = (x_i - centered([x]_p)) / p  mod q_i, computed as
-    mont_mul(x_i + p - lift, p^-1) minus 1 when lift was not centered
-    up (x_i + p - lift < 2^32 always). `dev` is the level-ops instance
-    for primes[:-1]."""
-    p = primes[-1]
-    rest = primes[:-1]
-    lift = coeffs[..., -1, :]  # [..., N] standard residues < p
-
-    def pinv():
-        out = np.empty((len(rest), 1), dtype=np.uint32)
-        for i, q in enumerate(rest):
-            inv = pow(p % q, q - 2, q)
-            out[i, 0] = (inv << 32) % q
-        return out
-
-    pinv_mont = dev.const(("pinv", p), pinv)
-    # One expression: the unreduced sum stays below 2^32.
-    r = dev.mul_mont(coeffs[..., :-1, :] + (p - lift)[..., None, :],
-                     pinv_mont)
-    # When lift <= p/2 we computed (x - lift + p)/p = want + 1.
-    corr = (lift <= (p // 2)).to(torch.int64)[..., None, :]
-    return dev.sub(r, corr)
-
 
 def _plain_np(pt) -> np.ndarray:
     """Host plaintext planes for upload: the data-prime rows, with the
@@ -225,6 +194,38 @@ class DeviceKeys:
             self._cache[key] = (
                 ksk, self._build_layout(ksk, level, col_perm=inv))
         return self._cache[key][1]
+
+    def dense_layout(self, ksk: K.KSwitchKey, level: int):
+        """(k0, k1) as dense [n_groups, n_ext, N] Montgomery planes in
+        digit order: the layout the fused key switch (ks.ks_mac)
+        streams."""
+        key = ("dense", id(ksk), level)
+        if key not in self._cache:
+            self._cache[key] = (ksk, self._build_dense(ksk, level))
+        return self._cache[key][1]
+
+    def _build_dense(self, ksk: K.KSwitchKey, level: int):
+        ctx = self.ctx
+        primes = ctx.primes_at_level(level)
+        n_cur = len(primes)
+        n_key = len(ctx.key_primes)
+        n_data_all = len(ctx.data_primes)
+        n_groups, _, _ = _ks_maps(ctx, level, ksk.alpha)
+        basis = primes + list(ctx.key_primes)
+
+        def build(klist):
+            dense = np.empty((n_groups, n_cur + n_key, ctx.n),
+                             dtype=np.uint64)
+            for j in range(n_groups):
+                for t in range(n_cur):
+                    dense[j, t] = klist[j][t]
+                for kk in range(n_key):
+                    dense[j, n_cur + kk] = klist[j][n_data_all + kk]
+            return _to_dev(np.stack(
+                [_to_mont_rows(dense[j], basis) for j in range(n_groups)]),
+                self.device)
+
+        return (build(ksk.k0), build(ksk.k1))
 
     def _build_layout(self, ksk: K.KSwitchKey, level: int, col_perm=None):
         ctx = self.ctx
@@ -489,6 +490,19 @@ class TorchProgram:
         primes = self.ctx.primes_at_level(level)
         ext = self._ext_ops_at(level)
 
+        if self._fused_ks_ok():
+            # The fused iNTT + P-division (+ output NTT) epilogue, also
+            # for hoisted rotation sums (JAX executor_jax._ks_div2).
+            n = self.ctx.n
+            lead = acc0.shape[:-2]
+            n_ext = acc0.shape[-2]
+            d0, d1 = ks_epilogue(
+                acc0.reshape(-1, n_ext, n).contiguous(),
+                acc1.reshape(-1, n_ext, n).contiguous(), ext,
+                len(self.ctx.key_primes), out_ntt=not coeff_out)
+            out_shape = lead + (len(primes), n)
+            return d0.reshape(out_shape), d1.reshape(out_shape)
+
         def div_p(acc):
             coeffs_ext = ext.intt(acc)
             prim = primes + list(self.ctx.key_primes)
@@ -499,6 +513,52 @@ class TorchProgram:
             return x if coeff_out else self._lops(prim).ntt(x)
 
         return div_p(acc0), div_p(acc1)
+
+    def _fused_ks_ok(self) -> bool:
+        """Use the fused key switch (ks.ks_mac / ks.ks_epilogue) unless
+        EVA_TPU_NO_FUSED_KS is set. The JAX package's 12 MB VMEM budget
+        does not carry over: each kernel block holds one row in shared
+        memory (<= 128 KB at N=32768) whatever n_ext is, so the limits
+        are the kernels' ring sizes and key-prime count."""
+        if os.environ.get("EVA_TPU_NO_FUSED_KS"):
+            return False
+        return (1024 <= self.ctx.n <= 32768
+                and len(self.ctx.key_primes) <= MAX_KEY_PRIMES)
+
+    def _ks_fused_mac(self, coeffs, level: int, ksk, poly_ntt=None):
+        """MAC of the fused key switch from coefficient-domain input:
+        FBE + digit NTTs + key MACs in one kernel, returning the
+        pre-division extended-basis accumulators (the epilogue runs in
+        _ks_div2 — once per rotation SUM). When the caller holds the
+        polynomial's NTT planes (poly_ntt), each digit's own rows are
+        read from them instead of recomputed."""
+        ctx = self.ctx
+        alpha = ksk.alpha  # per-key digit grouping (matches dense_layout)
+        n_cur = len(ctx.primes_at_level(level))
+        n_ext = n_cur + len(ctx.key_primes)
+        y, n_groups = self._ks_fbe_y(coeffs, level, alpha)
+        lead = y.shape[:-2]
+        y = y.reshape(-1, n_groups, alpha, ctx.n).contiguous()
+        x_ntt = (None if poly_ntt is None
+                 else poly_ntt.reshape(-1, n_cur, ctx.n).contiguous())
+        _, _, conv_mont = _ks_dev_tables(ctx, level, alpha)
+        _, owner, _ = _ks_maps(ctx, level, alpha)
+        conv = self._const(("ks_conv_dense", level, alpha),
+                           conv_mont[..., 0])
+        owner_ext = self._const(("ks_owner", level, alpha), np.concatenate(
+            [owner, np.full(n_ext - n_cur, -1, dtype=np.int64)]))
+        k0, k1 = self.dkeys.dense_layout(ksk, level)
+        acc0, acc1 = ks_mac(y, k0, k1, conv, owner_ext,
+                            self._ext_ops_at(level), x_ntt)
+        shape = lead + (n_ext, ctx.n)
+        return acc0.reshape(shape), acc1.reshape(shape)
+
+    def _ks_fused_coeffs(self, coeffs, level: int, ksk, out_ntt: bool,
+                         poly_ntt=None):
+        """Fused key switch from coefficient-domain input: the MAC kernel
+        (_ks_fused_mac), then the epilogue kernels (_ks_div2)."""
+        acc0, acc1 = self._ks_fused_mac(coeffs, level, ksk, poly_ntt)
+        return self._ks_div2(acc0, acc1, level, coeff_out=not out_ntt)
 
     def _fin(self, v):
         """Finalize a deferred rotation-sum value ("rotsum", level, c0,
@@ -544,12 +604,20 @@ class TorchProgram:
             acc0, acc1 = self._ks_mac(digits, level, layout)
             return ("rotsum", level, c0, None, aperm(acc0), aperm(acc1))
         c1 = aperm(polys[1])
-        digits = self._ks_digits(c1, level, alpha)
-        acc0, acc1 = self._ks_mac(
-            digits, level, self.dkeys.layout(self.keys.galois[g], level))
+        if self._fused_ks_ok():
+            acc0, acc1 = self._ks_fused_mac(dev.intt(c1), level,
+                                            self.keys.galois[g], poly_ntt=c1)
+        else:
+            digits = self._ks_digits(c1, level, alpha)
+            acc0, acc1 = self._ks_mac(
+                digits, level, self.dkeys.layout(self.keys.galois[g], level))
         return ("rotsum", level, c0, None, acc0, acc1)
 
     def _key_switch(self, poly, level: int, ksk):
+        if self._fused_ks_ok():
+            dev = self._ops_at(level)
+            return self._ks_fused_coeffs(dev.intt(poly), level, ksk,
+                                         out_ntt=True, poly_ntt=poly)
         return self._ks_apply(self._ks_digits(poly, level, ksk.alpha), level,
                               self.dkeys.layout(ksk, level))
 
@@ -808,10 +876,16 @@ class TorchProgram:
         coeffs0 = dev.intt(polys[0])
         coeffs1 = dev.intt(polys[1])
         if len(polys) == 3:
-            digits = self._ks_digits(polys[2], level, self.keys.relin.alpha)
-            d0, d1 = self._ks_apply(
-                digits, level, self.dkeys.layout(self.keys.relin, level),
-                coeff_out=True)
+            if self._fused_ks_ok():
+                d0, d1 = self._ks_fused_coeffs(
+                    dev.intt(polys[2]), level, self.keys.relin,
+                    out_ntt=False, poly_ntt=polys[2])
+            else:
+                digits = self._ks_digits(polys[2], level,
+                                         self.keys.relin.alpha)
+                d0, d1 = self._ks_apply(
+                    digits, level, self.dkeys.layout(self.keys.relin, level),
+                    coeff_out=True)
             coeffs0 = dev.add(coeffs0, d0)
             coeffs1 = dev.add(coeffs1, d1)
 
@@ -845,12 +919,16 @@ class TorchProgram:
             coeffs.append(x)
         if len(polys) == 2:
             return [dev_new.ntt(c) for c in coeffs]
-        digits = self._ks_digits_from_coeffs(coeffs[2], new_level,
-                                             self.keys.relin.alpha)
-        d0, d1 = self._ks_apply(
-            digits, new_level,
-            self.dkeys.layout(self.keys.relin, new_level),
-            coeff_out=True)
+        if self._fused_ks_ok():
+            d0, d1 = self._ks_fused_coeffs(coeffs[2], new_level,
+                                           self.keys.relin, out_ntt=False)
+        else:
+            digits = self._ks_digits_from_coeffs(coeffs[2], new_level,
+                                                 self.keys.relin.alpha)
+            d0, d1 = self._ks_apply(
+                digits, new_level,
+                self.dkeys.layout(self.keys.relin, new_level),
+                coeff_out=True)
         return [dev_new.ntt(dev_new.add(coeffs[0], d0)),
                 dev_new.ntt(dev_new.add(coeffs[1], d1))]
 
@@ -881,17 +959,20 @@ class TorchProgram:
             return [aperm(dev.add(polys[0], d0)), aperm(d1)]
         c0 = aperm(polys[0])
         c1 = aperm(polys[1])
-        digits = self._ks_digits(c1, level, self.keys.galois[g].alpha)
-        d0, d1 = self._ks_apply(
-            digits, level, self.dkeys.layout(self.keys.galois[g], level))
+        if self._fused_ks_ok():
+            d0, d1 = self._ks_fused_coeffs(dev.intt(c1), level,
+                                           self.keys.galois[g], out_ntt=True,
+                                           poly_ntt=c1)
+        else:
+            digits = self._ks_digits(c1, level, self.keys.galois[g].alpha)
+            d0, d1 = self._ks_apply(
+                digits, level, self.dkeys.layout(self.keys.galois[g], level))
         return [dev.add(c0, d0), d1]
 
     # -- run -----------------------------------------------------------------
 
-    def run(self, host_values: Dict[int, object]) -> Dict[str, Ciphertext]:
-        """host_values: term index -> Ciphertext (inputs) or Plaintext
-        (inputs + encodes, already host-encoded). Returns output name ->
-        Ciphertext (numpy, uint64)."""
+    def _inputs(self, host_values: Dict[int, object]):
+        """Device inputs of one valuation (through the upload cache)."""
         device = self.device
         cipher_in = {}
         plain_in = {}
@@ -902,15 +983,113 @@ class TorchProgram:
             elif isinstance(v, Plaintext):
                 plain_in[f"t{idx}"] = self._upload(
                     v, lambda pt: _to_dev(_plain_np(pt), device))
-        out = self._traced(cipher_in, plain_in)
+        return cipher_in, plain_in
+
+    def _result(self, out, b=None) -> Dict[str, object]:
+        """Host Ciphertext/Plaintext outputs from host (CPU) tensors;
+        with b, batch element b of [B, n_sub, N] planes (a plane without
+        the batch axis, computed from constants alone, serves every
+        element)."""
         result = {}
         for name, t in self.program.outputs.items():
             if self.types[t] == Type.Raw:
                 continue
-            planes = [c.cpu().numpy().astype(np.uint64) for c in out[name]]
+            planes = [c.numpy().astype(np.uint64) for c in out[name]]
+            if b is not None:
+                planes = [pl[b] if pl.ndim == 3 else pl for pl in planes]
             p = self.plan[t.index]
             if self.types[t] == Type.Plain:
                 result[name] = Plaintext(planes[0], p.level, p.scale)
             else:
                 result[name] = Ciphertext(planes, p.level, p.scale)
         return result
+
+    def run(self, host_values: Dict[int, object]) -> Dict[str, Ciphertext]:
+        """host_values: term index -> Ciphertext (inputs) or Plaintext
+        (inputs + encodes, already host-encoded). Returns output name ->
+        Ciphertext (numpy, uint64)."""
+        out = self._traced(*self._inputs(host_values))
+        return self._result({name: [c.cpu() for c in planes]
+                             for name, planes in out.items()})
+
+    def run_batched(self, host_values_list) -> List[Dict[str, object]]:
+        """Execute the program over a BATCH of valuations in one pass.
+
+        Each cipher input is stacked along a leading batch axis
+        ([B, n_sub, N] planes) and every device op broadcasts over it,
+        so each kernel launch covers the whole batch (the key-switch
+        kernels' batch grid axis). Program constants (cached encodes:
+        the same host object in every valuation) are uploaded once and
+        broadcast, not stacked B times. Port of
+        executor_jax.JaxProgram.run_batched without the mesh branches."""
+        batch = len(host_values_list)
+        if batch == 0:
+            return []
+        device = self.device
+        cipher_in = {}
+        plain_in = {}
+        for idx, v in host_values_list[0].items():
+            key = f"t{idx}"
+            if isinstance(v, Ciphertext):
+                cipher_in[key] = [
+                    _to_dev(np.stack([hv[idx].polys[k]
+                                      for hv in host_values_list]), device)
+                    for k in range(v.size)]
+            elif isinstance(v, Plaintext):
+                if all(hv[idx] is v for hv in host_values_list):
+                    plain_in[key] = self._upload(
+                        v, lambda pt: _to_dev(_plain_np(pt), device))
+                else:
+                    plain_in[key] = _to_dev(np.stack(
+                        [_plain_np(hv[idx]) for hv in host_values_list]),
+                        device)
+        out = self._traced(cipher_in, plain_in)
+        host = {name: [c.cpu() for c in planes]
+                for name, planes in out.items()}
+        return [self._result(host, b) for b in range(batch)]
+
+    def run_pipelined(self, host_values_iter, depth: int = 2):
+        """Generator over per-execution outputs, in order, with execution
+        k+1 enqueued on the device before execution k's outputs are
+        collected.
+
+        PyTorch launches are asynchronous on a CUDA device: each
+        execution's kernels are enqueued, then its outputs are copied
+        into pinned host memory with non-blocking copies on the same
+        stream, and a CUDA event marks their end. While the host builds
+        and launches the next execution, the device runs the previous
+        one; collecting waits on that execution's event only. `depth`
+        bounds the executions in flight (device memory: one set of
+        outputs each). Port of executor_jax.JaxProgram.run_pipelined."""
+        import collections
+
+        pending = collections.deque()
+        on_cuda = self.device.type == "cuda"
+
+        def dispatch(host_values):
+            out = self._traced(*self._inputs(host_values))
+            if not on_cuda:
+                return out, None
+            host = {}
+            for name, planes in out.items():
+                host[name] = []
+                for c in planes:
+                    h = torch.empty(c.shape, dtype=c.dtype, pin_memory=True)
+                    h.copy_(c, non_blocking=True)
+                    host[name].append(h)
+            done = torch.cuda.Event()
+            done.record()
+            return host, done
+
+        def collect(item):
+            host, done = item
+            if done is not None:
+                done.synchronize()
+            return self._result(host)
+
+        for hv in host_values_iter:
+            pending.append(dispatch(hv))
+            if len(pending) > depth:
+                yield collect(pending.popleft())
+        while pending:
+            yield collect(pending.popleft())

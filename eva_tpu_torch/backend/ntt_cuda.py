@@ -2,8 +2,9 @@
 
 The kernels are compiled with nvcc for sm_90a into a shared library with
 a plain C interface, at first use, into `build/eva_tpu_torch/` beside the
-package; they are loaded with ctypes. Each launch goes on the current
-CUDA stream, and the C entry point returns the launch's cudaError_t,
+package (cuda_lib.build); they are loaded with ctypes. Each launch goes
+on the current CUDA stream, and the C entry point returns the launch's
+cudaError_t,
 which the wrapper turns into an exception. There is no fallback: a CUDA
 tensor either goes through the kernel or raises.
 
@@ -14,61 +15,26 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
-import subprocess
-import tempfile
 import threading
 
 import torch
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "ntt.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "eva_tpu_torch")
-LIB_PATH = os.path.join(BUILD_DIR, "libeva_ntt.so")
-ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+from . import cuda_lib
+
+SOURCE = os.path.join(cuda_lib.CSRC, "ntt.cu")
+LIB_PATH = os.path.join(cuda_lib.BUILD_DIR, "libeva_ntt.so")
 
 LAUNCHES = {"ntt_fwd": 0, "ntt_inv": 0}
-
-MIN_LOGN, MAX_LOGN = 10, 15  # N = 1024 .. 32768 (ckks/params.py)
 
 _lib = None
 _ready_devices = set()  # devices whose kernels got the shared-memory opt-in
 _lock = threading.Lock()
 
 
-def _nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
-            return os.path.join(cand, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the CUDA NTT kernels cannot be "
-                           "built (set CUDA_HOME)")
-    return found
-
-
 def build(verbose: bool = False) -> str:
     """Compile csrc/ntt.cu into LIB_PATH unless it is up to date; returns
-    the library path. With verbose, nvcc prints per-kernel resource use
-    (-Xptxas -v)."""
-    if (os.path.exists(LIB_PATH) and not verbose
-            and os.path.getmtime(LIB_PATH) >= os.path.getmtime(SOURCE)):
-        return LIB_PATH
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-o", tmp, SOURCE]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr, end="")
-    os.replace(tmp, LIB_PATH)
-    return LIB_PATH
+    the library path (see cuda_lib.build)."""
+    return cuda_lib.build(SOURCE, LIB_PATH, verbose)
 
 
 def _load(device: torch.device):
@@ -95,28 +61,17 @@ def _load(device: torch.device):
 
 def _check(x: torch.Tensor, ops) -> int:
     """Validate a launch's input; returns the row count."""
-    if not x.is_cuda:
-        raise ValueError("CUDA NTT: tensor is not on a CUDA device")
-    if x.dtype != torch.int64:
-        raise ValueError(f"CUDA NTT: expected int64 residues, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("CUDA NTT: tensor must be contiguous")
+    cuda_lib.check_tensor(x, ops.device, "CUDA NTT")
     n = ops.n
-    if n & (n - 1) or not (1 << MIN_LOGN) <= n <= (1 << MAX_LOGN):
-        raise ValueError(f"CUDA NTT: N={n} not a power of two in "
-                         f"[{1 << MIN_LOGN}, {1 << MAX_LOGN}]")
+    cuda_lib.check_ring(n, "CUDA NTT")
     if x.dim() < 2 or x.shape[-1] != n or x.shape[-2] != len(ops.primes):
         raise ValueError(f"CUDA NTT: shape {tuple(x.shape)} does not end in "
                          f"[{len(ops.primes)}, {n}]")
-    if x.device != ops.device:
-        raise ValueError(f"CUDA NTT: tensor on {x.device}, tables on "
-                         f"{ops.device}")
     return x.numel() // n
 
 
 def _raise(name: str, err: int) -> None:
-    if err:
-        raise RuntimeError(f"CUDA NTT {name}: failed with cudaError_t {err}")
+    cuda_lib.raise_on(f"CUDA NTT {name}", err)
 
 
 def ntt_fwd(x: torch.Tensor, ops) -> torch.Tensor:

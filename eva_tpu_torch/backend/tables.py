@@ -27,6 +27,20 @@ from .modmath import (add_mod, mont_constants, mont_mul, mont_rinv,
 # card that went through the kernels leaves these at 0.
 PLAIN_CALLS = {"ntt_fwd": 0, "ntt_inv": 0}
 
+_LEVEL_OPS_CACHE: Dict[tuple, "DeviceLevelOps"] = {}
+
+
+def level_ops(primes: List[int], n: int, device=None) -> "DeviceLevelOps":
+    """The DeviceLevelOps of one prime list, built once per process."""
+    # n MUST be part of the key: the same prime can serve two ring sizes
+    # (q = 1 mod 2*16384 implies q = 1 mod 2*8192). The device too: the
+    # tables live on it.
+    device = resolve_device(device)
+    key = (tuple(primes), n, device)
+    if key not in _LEVEL_OPS_CACHE:
+        _LEVEL_OPS_CACHE[key] = DeviceLevelOps(primes, n, device)
+    return _LEVEL_OPS_CACHE[key]
+
 
 def _col(values, device) -> torch.Tensor:
     """[n_sub, 1] int64 per-row constant on `device`."""
@@ -193,8 +207,10 @@ class DeviceLevelOps:
         return x
 
     def kernel_tables(self):
-        """The CUDA kernels' twiddle tables on this (CUDA) device:
-        uint32 bit patterns held in int32 tensors, uploaded once."""
+        """The CUDA kernels' tables on this (CUDA) device: uint32 bit
+        patterns held in int32 tensors, uploaded once. Row r of every
+        table belongs to prime r, so the first k rows are the tables of
+        primes[:k]."""
         if self._kernel_tables is None:
             def up(a):
                 return torch.from_numpy(
@@ -202,6 +218,8 @@ class DeviceLevelOps:
             t = self.np_tables
             self._kernel_tables = {
                 "q": up(np.array(self.primes, dtype=np.uint32)),
+                "nqinv": up(np.array([mont_constants(q)[0]
+                                      for q in self.primes], dtype=np.uint32)),
                 "wf": up(t["mst_f"][0]), "wpf": up(t["mst_f"][1]),
                 "wi": up(t["mst_i"][0]), "wpi": up(t["mst_i"][1]),
                 "ninv": up(t["ninv"][0][:, 0]),

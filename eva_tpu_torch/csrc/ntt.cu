@@ -5,10 +5,11 @@
 //   eva_tpu/backend/pallas_ntt_v2.py  _fwd_kernel_v2, _inv_kernel_v2
 // All of them compute the same values as the Harvey merged-psi schedule of
 // eva_tpu/backend/tables.py (_fwd_merged / _inv_merged), which is what this
-// file runs: forward takes natural order in and gives bit-reversed order
-// out; the inverse takes bit-reversed in, gives natural out, and folds N^-1
-// into its last stage. Every output is the canonical residue, so results
-// equal the TPU kernels' and the host tables' bit for bit.
+// file runs (the stage loops live in ntt_common.cuh, shared with ks.cu):
+// forward takes natural order in and gives bit-reversed order out; the
+// inverse takes bit-reversed in, gives natural out, and folds N^-1 into
+// its last stage. Every output is the canonical residue, so results equal
+// the TPU kernels' and the host tables' bit for bit.
 //
 // Layout: data is [rows, N] int64 (residues < q < 2^31), row r uses prime
 // r % n_sub. Twiddle tables are [n_sub, N] uint32 Shoup pairs (w, w'):
@@ -30,33 +31,13 @@
 // a cluster, radix-4/8 butterflies in registers, several rows per block
 // and 32-bit I/O are the next steps.
 
-#include <cstdint>
 #include <cuda_runtime.h>
+
+#include "ntt_common.cuh"
 
 namespace {
 
-constexpr int kMaxLogN = 15;  // N = 32768: 128 KB of shared memory
-constexpr int kMinLogN = 10;  // N = 1024
-
-__device__ __forceinline__ uint32_t shoup_mul(uint32_t a, uint32_t w,
-                                              uint32_t wp, uint32_t q) {
-  // qhat = floor(a * wp / 2^32) underestimates floor(a*w/q) by < 2, so
-  // r = a*w - qhat*q lies in [0, 2q) and is exact in wrapping 32-bit math.
-  uint32_t qhat = __umulhi(a, wp);
-  uint32_t r = a * w - qhat * q;
-  return r >= q ? r - q : r;
-}
-
-__device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b,
-                                            uint32_t q) {
-  uint32_t s = a + b;  // < 2q < 2^32
-  return s >= q ? s - q : s;
-}
-
-__device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b,
-                                            uint32_t q) {
-  return a >= b ? a - b : a + q - b;
-}
+using namespace eva;
 
 __global__ void ntt_fwd_kernel(const int64_t* __restrict__ in,
                                int64_t* __restrict__ out,
@@ -66,33 +47,13 @@ __global__ void ntt_fwd_kernel(const int64_t* __restrict__ in,
                                int logn) {
   extern __shared__ uint32_t s[];
   const int n = 1 << logn;
-  const int half = n >> 1;
   const int p = blockIdx.x % n_sub;
-  const uint32_t q = qs[p];
   const size_t base = (size_t)blockIdx.x * n;
-  const uint32_t* wr = w + (size_t)p * n;
-  const uint32_t* wpr = wp + (size_t)p * n;
 
   for (int i = threadIdx.x; i < n; i += blockDim.x)
     s[i] = (uint32_t)in[base + i];
   __syncthreads();
-
-  // Stage m (1, 2, ..., N/2): m blocks of 2t elements, t = N / (2m).
-  int logt = logn - 1;
-  for (int m = 1; m < n; m <<= 1, --logt) {
-    const int t = 1 << logt;
-    for (int j = threadIdx.x; j < half; j += blockDim.x) {
-      const int k = j >> logt;
-      const int i0 = (k << (logt + 1)) + (j & (t - 1));
-      const int i1 = i0 + t;
-      const uint32_t lo = s[i0];
-      const uint32_t hi = shoup_mul(s[i1], wr[m + k], wpr[m + k], q);
-      s[i0] = add_mod(lo, hi, q);
-      s[i1] = sub_mod(lo, hi, q);
-    }
-    __syncthreads();
-  }
-
+  ntt_fwd_smem(s, w + (size_t)p * n, wp + (size_t)p * n, qs[p], logn);
   for (int i = threadIdx.x; i < n; i += blockDim.x)
     out[base + i] = (int64_t)s[i];
 }
@@ -107,46 +68,16 @@ __global__ void ntt_inv_kernel(const int64_t* __restrict__ in,
                                int logn) {
   extern __shared__ uint32_t s[];
   const int n = 1 << logn;
-  const int half = n >> 1;
   const int p = blockIdx.x % n_sub;
-  const uint32_t q = qs[p];
-  const uint32_t nv = ninv[p];
-  const uint32_t nvp = ninvp[p];
   const size_t base = (size_t)blockIdx.x * n;
-  const uint32_t* wr = w + (size_t)p * n;
-  const uint32_t* wpr = wp + (size_t)p * n;
 
   for (int i = threadIdx.x; i < n; i += blockDim.x)
     s[i] = (uint32_t)in[base + i];
   __syncthreads();
-
-  // Stage m (N/2, ..., 2, 1): m blocks of 2t elements, t = N / (2m).
-  int logt = 0;
-  for (int m = half; m >= 1; m >>= 1, ++logt) {
-    const int t = 1 << logt;
-    for (int j = threadIdx.x; j < half; j += blockDim.x) {
-      const int k = j >> logt;
-      const int i0 = (k << (logt + 1)) + (j & (t - 1));
-      const int i1 = i0 + t;
-      const uint32_t lo = s[i0];
-      const uint32_t hi = s[i1];
-      uint32_t sum = add_mod(lo, hi, q);
-      if (m == 1) sum = shoup_mul(sum, nv, nvp, q);  // N^-1, lo branch
-      s[i0] = sum;
-      s[i1] = shoup_mul(sub_mod(lo, hi, q), wr[m + k], wpr[m + k], q);
-    }
-    __syncthreads();
-  }
-
+  ntt_inv_smem(s, w + (size_t)p * n, wp + (size_t)p * n, qs[p], ninv[p],
+               ninvp[p], logn);
   for (int i = threadIdx.x; i < n; i += blockDim.x)
     out[base + i] = (int64_t)s[i];
-}
-
-// Threads per block for a row of 2^logn, or 0 when logn is out of range.
-int block_threads(int logn) {
-  if (logn < kMinLogN || logn > kMaxLogN) return 0;
-  const int half = 1 << (logn - 1);
-  return half < 1024 ? half : 1024;
 }
 
 }  // namespace
@@ -156,12 +87,13 @@ extern "C" {
 // Opt both kernels in to the dynamic shared memory the largest ring needs
 // (N = 32768: 128 KB, above the 48 KB default) on the current device.
 int eva_ntt_init() {
-  const int smem = (1 << kMaxLogN) * (int)sizeof(uint32_t);
   cudaError_t err = cudaFuncSetAttribute(
-      ntt_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      ntt_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kRowSmemMax);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaFuncSetAttribute(
-      ntt_inv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      ntt_inv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kRowSmemMax);
 }
 
 // Forward NTT of `rows` rows of length 2^logn; returns the cudaError_t of

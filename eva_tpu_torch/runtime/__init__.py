@@ -141,8 +141,12 @@ class EVAPublic:
         return EVAValuation(self.params, outputs)
 
     def execute_batch(self, program, inputs_list, mesh=None):
-        """Execute one compiled program over a batch of valuations. Not
-        ported to the torch backend yet: raises NotImplementedError."""
+        """Execute one compiled program over a batch of valuations in one
+        device pass (torch backend): cipher inputs are stacked on a
+        leading batch axis, so each kernel launch covers the batch.
+        Returns one valuation per input, each bit-identical to its own
+        `execute`. `mesh` (multi-device) is not ported and raises
+        NotImplementedError; so does a program with vec_size > N/2."""
         for v in inputs_list:
             _check_params(self.params, v, "EVAPublic.execute_batch")
         results = self._executor_for(program).run_batch(inputs_list, mesh=mesh)
@@ -150,8 +154,11 @@ class EVAPublic:
 
     def execute_pipelined(self, program, inputs_iter, depth: int = 2):
         """Stream executions of one compiled program over an iterable of
-        input valuations. Not ported to the torch backend yet: raises
-        NotImplementedError."""
+        input valuations (torch backend), yielding one output valuation
+        per input, in order. Execution k+1 is enqueued on the device
+        before execution k's outputs are collected (non-blocking copies
+        into pinned host memory); `depth` bounds the executions in
+        flight. Each output is bit-identical to its own `execute`."""
         ex = self._executor_for(program)
 
         def checked(it):

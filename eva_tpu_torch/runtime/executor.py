@@ -360,15 +360,50 @@ class Executor:
         self._input_free[idx] = result
         return result
 
+    def _require_torch(self, what: str) -> None:
+        if self.backend != "torch":
+            raise ValueError(f"{what} requires the torch backend")
+
     def run_batch(self, inputs_list, mesh=None):
-        """Batched execution: not ported to the torch backend yet."""
-        raise NotImplementedError(
-            "run_batch is not ported to eva_tpu_torch yet")
+        """Execute over a batch of valuations (torch backend only):
+        host-phase each element, then one device pass over the stacked
+        batch. `mesh` (multi-device batch sharding) is not ported."""
+        self._require_torch("batched execution")
+        if mesh is not None:
+            raise NotImplementedError(
+                "run_batch(mesh=...): multi-device execution is not ported "
+                "to eva_tpu_torch yet (ROADMAP Queue 1, multi-device)")
+        pairs = [self._host_phase(inputs) for inputs in inputs_list]
+        results = self._get_torch_program().run_batched(
+            [p[0] for p in pairs])
+        for b, (_, raw_vals) in enumerate(pairs):
+            for name, t in self.program.outputs.items():
+                if self.types[t] == Type.Raw:
+                    results[b][name] = raw_vals[t.operands[0].index]
+        return results
 
     def run_pipelined(self, inputs_iter, depth: int = 2):
-        """Pipelined execution: not ported to the torch backend yet."""
-        raise NotImplementedError(
-            "run_pipelined is not ported to eva_tpu_torch yet")
+        """Generator: one output dict per input valuation, in order,
+        with host encode, device compute, and output fetch overlapped
+        across consecutive executions (torch backend only)."""
+        self._require_torch("pipelined execution")
+        import collections
+
+        raw_q: collections.deque = collections.deque()
+
+        def hv_iter():
+            for inputs in inputs_iter:
+                hv, raws = self._host_phase(inputs)
+                raw_q.append(raws)
+                yield hv
+
+        tp = self._get_torch_program()
+        for outputs in tp.run_pipelined(hv_iter(), depth=depth):
+            raw_vals = raw_q.popleft()
+            for name, t in self.program.outputs.items():
+                if self.types[t] == Type.Raw:
+                    outputs[name] = raw_vals[t.operands[0].index]
+            yield outputs
 
     def _host_phase(self, inputs: Dict):
         """Compute Raw subgraphs and plaintext encodes on host; returns

@@ -5,7 +5,8 @@ Each program is compiled by both packages (parameters and signature must
 agree). eva_tpu generates the keys and encrypts; the key set and the
 ciphertexts are carried into the port with eva_tpu_torch.convert; the
 port executes with Executor(backend="torch", device="cpu") (the plain
-PyTorch version of the NTT kernels). The output ciphertexts must be
+PyTorch versions of the NTT and key-switch kernels). The output
+ciphertexts must be
 bit-identical to eva_tpu's: its JAX backend for two programs here, its
 numpy backend (which the repo's own tests hold bit-identical to JAX) for
 the rest (here and in test_torch_programs.py, which uses these
@@ -92,6 +93,10 @@ PROGRAMS = {
     "upc": (lambda x: x * [0.5] * 16 + 1, 16, 30, {}, {}),
     # TestTwoEntryKSJax (key_terms=2, alpha=4)
     "deep2p": (_deep, 1024, 40, {"two_entry_ks": "true"}, {}),
+    # test_torch_batch.py: hoisted rotations, a lone rotation of a sum, a
+    # stacked plaintext input and relinearizations
+    "batch": (lambda x, w: (((x << 1) + (x << 2)) << 3) * w + x * x, 16,
+              30, {}, {"plain_w": True}),
 }
 
 
@@ -227,8 +232,8 @@ def test_polynomial_round_trip_with_port_keygen():
     assert valuation_mse(sec.decrypt(out, sig), ref) < 0.01
     host = EVAPublic(pub.ctx, pub._keys, params, backend="numpy")
     _assert_same(host.execute(compiled, enc), out)
-    with pytest.raises(NotImplementedError):
-        pub.execute_batch(compiled, [enc])
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        pub.execute_batch(compiled, [enc], mesh=object())
 
 
 def test_generate_keys_refuses_to_fall_back_to_cpu(monkeypatch):
