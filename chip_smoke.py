@@ -14,9 +14,14 @@ Phases (any failure exits non-zero and prints no result line):
      torch.equal (exact modular arithmetic: the tolerance is zero).
      NTT: at the main path's shape [4, 13, 16384] (Sobel's 11 data
      primes + 2 key primes) and at N = 1024, 2048, 32768. Fused key
-     switch (MAC, epilogue): at Sobel's level-0 shapes (n_cur 11, n_key
-     2, alpha 2) at B = 1 and 4, with and without x_ntt, out_ntt True
-     and False, and at N = 1024 and 32768. Device times by CUDA events
+     switch (MAC, epilogue), with and without x_ntt, out_ntt True and
+     False, at KS_SHAPES: Sobel's level 0 (n_cur 11, n_key 2, alpha 2:
+     six digit groups) at B = 1, 4 and 3, Harris's level 0 (four
+     groups), alpha 1 at Sobel's level 0 (11 groups: a cluster rank
+     walks two digits), Sobel's deepest level (one group), a context
+     with one key prime, and Sobel's level 0 at N = 1024 and 32768.
+     The key-switch kernels' registers, spill bytes and the clusters the
+     card holds at once are printed first. Device times by CUDA events
      around CUDA-graph replays; eager per-call times beside them.
   3. Main path: Sobel and Harris 90x90 (N=16384) through compile ->
      generate_keys (the card) -> encrypt -> execute -> decrypt, on the
@@ -64,6 +69,7 @@ OPS_PER_MONT_MUL = 9
 OPS_PER_ADD_MOD = 4
 OPS_PER_DIVIDE = 12
 SOBEL_BITS = [60, 20, 60, 60, 60, 60, 60]
+HARRIS_BITS = [60, 60, 60, 60, 60]
 # Decrypted MSE against the plaintext reference. Sobel's is ~1e-14.
 # Harris's outputs reach ~1e4 and its MSE varies with the keys: over 48
 # fresh key sets it ran 2.9e-4 (min), 4.1e-4 (median), 1.3e-3 (max)
@@ -280,21 +286,39 @@ def epilogue_bound_ms(batch: int, n_ext: int, n_key: int, n: int,
     return bound(byts, ops)
 
 
+# Fused key-switch shapes held to the plain versions: (label, prime bits,
+# key terms, N, level, alpha, batches). Sobel's level 0 (n_cur 11, n_key 2,
+# six digit groups) is the main path's and is timed at B = 1 and 4.
+KS_SHAPES = (
+    ("sobel_l0", SOBEL_BITS, 1, 16384, 0, 2, (1, 4, 3)),
+    ("harris_l0", HARRIS_BITS, 1, 16384, 0, 2, (1,)),
+    ("sobel_l0_alpha1", SOBEL_BITS, 1, 16384, 0, 1, (1,)),
+    ("sobel_deepest", SOBEL_BITS, 1, 16384, 5, 2, (1,)),
+    ("n_key1", (60, 40, 60, 30), 1, 16384, 0, 1, (1,)),
+    ("sobel_l0", SOBEL_BITS, 1, 1024, 0, 2, (4,)),
+    ("sobel_l0", SOBEL_BITS, 1, 32768, 0, 2, (1,)),
+)
+TIMED_KS = ("sobel_l0", 16384, (1, 4))
+
+
 def ks_kernel_phase(device):
     """Phase 2, fused key switch: ks_mac and ks_epilogue against their
-    plain versions at Sobel's level-0 shapes (N=16384, B = 1 and 4, every
-    option) and at N = 1024 and 32768; returns the numbers of the shapes
-    one execute launches (B=1, with x_ntt / out_ntt) and those at B=4."""
+    plain versions at every KS_SHAPES shape (with and without x_ntt,
+    out_ntt True and False); returns the numbers of the shapes one
+    execute launches (Sobel level 0, B=1, with x_ntt / out_ntt) and those
+    at B=4."""
     import torch
     from eva_tpu_torch.backend import ks, ks_cuda
     from eva_tpu_torch.backend.executor_torch import _ks_dev_tables, _ks_maps
     from eva_tpu_torch.backend.tables import level_ops
     from eva_tpu_torch.crypto.context import get_context
 
+    for logn in (14, 15):
+        print(f"kernels ks resources logn={logn} "
+              + json.dumps(ks_cuda.kernel_info(logn, device)), flush=True)
     results = {}
-    level, alpha = 0, 2
-    for n, batches in ((16384, (1, 4)), (1024, (4,)), (32768, (1,))):
-        ctx = get_context(tuple(SOBEL_BITS), (), n, 1)
+    for label, bits, key_terms, n, level, alpha, batches in KS_SHAPES:
+        ctx = get_context(tuple(bits), (), n, key_terms)
         primes = ctx.primes_at_level(level)
         basis = primes + list(ctx.key_primes)
         n_cur, n_key, n_ext = len(primes), len(ctx.key_primes), len(basis)
@@ -306,7 +330,8 @@ def ks_kernel_phase(device):
         own = torch.from_numpy(np.concatenate(
             [owner, [-1] * n_key]).astype(np.int64)).to(device)
         for batch in batches:
-            rng = np.random.default_rng(SEED + n + batch)
+            rng = np.random.default_rng(
+                SEED + n + batch + 31 * level + alpha)
 
             def planes(lead, qs):
                 return torch.from_numpy(np.stack(
@@ -324,17 +349,18 @@ def ks_kernel_phase(device):
             x_ntt = planes((batch,), primes)
             acc0, acc1 = planes((batch,), basis), planes((batch,), basis)
             shape = f"N={n} B={batch} n_cur={n_cur} n_key={n_key} " \
-                    f"alpha={alpha}"
+                    f"alpha={alpha} groups={n_groups}"
+            timed = (label, n) == TIMED_KS[:2] and batch in TIMED_KS[2]
             for xn in (x_ntt, None):
                 got = ks_cuda.ks_mac(y, k0, k1, conv, own, ext, xn)
                 want = ks.ks_mac_plain(y, k0, k1, conv, own, ext, xn)
                 torch.cuda.synchronize()
                 ok = all(torch.equal(g, w) for g, w in zip(got, want))
-                print(f"kernels ks_mac {shape} x_ntt={xn is not None} "
-                      f"equal={ok}", flush=True)
+                print(f"kernels ks_mac {label} {shape} "
+                      f"x_ntt={xn is not None} equal={ok}", flush=True)
                 if not ok:
-                    raise AssertionError(f"ks_mac disagrees: {shape}")
-                if n != 16384 or xn is None:
+                    raise AssertionError(f"ks_mac disagrees: {label} {shape}")
+                if not timed or xn is None:
                     continue
                 bms, bby = mac_bound_ms(y, xn, k0, n_ext, n)
                 res = {
@@ -356,11 +382,12 @@ def ks_kernel_phase(device):
                 want = ks.ks_epilogue_plain(acc0, acc1, ext, n_key, out_ntt)
                 torch.cuda.synchronize()
                 ok = all(torch.equal(g, w) for g, w in zip(got, want))
-                print(f"kernels ks_epilogue {shape} out_ntt={out_ntt} "
-                      f"equal={ok}", flush=True)
+                print(f"kernels ks_epilogue {label} {shape} "
+                      f"out_ntt={out_ntt} equal={ok}", flush=True)
                 if not ok:
-                    raise AssertionError(f"ks_epilogue disagrees: {shape}")
-                if n != 16384 or not out_ntt:
+                    raise AssertionError(
+                        f"ks_epilogue disagrees: {label} {shape}")
+                if not timed or not out_ntt:
                     continue
                 bms, bby = epilogue_bound_ms(batch, n_ext, n_key, n, True)
                 res = {
@@ -480,7 +507,8 @@ def run_program(name, build, seed, device, reps=5):
     }, (compiled, pub, enc, sig, ref_out)
 
 
-KS_KERNELS = ("ks_mac_kernel", "ks_key_intt_kernel", "ks_epilogue_kernel")
+KS_KERNELS = ("ks_mac_cluster_kernel", "ks_epilogue_key_kernel",
+              "ks_epilogue_row_kernel")
 
 
 def profile_execute(name, pub, compiled, enc, top: int = 10):
@@ -629,6 +657,9 @@ def main() -> int:
             raise AssertionError(f"{name}: MSE {res['mse']} >= "
                                  f"{MSE_LIMIT[name]}")
         res["profile"] = profile_execute(name, pub, compiled, enc)
+        if res["profile"] is None or not res["profile"]["ks_ms"] > 0:
+            raise AssertionError(f"{name}: the profile shows no key-switch "
+                                 f"kernel time: {res['profile']}")
         paths[name] = res
         print(f"path {name} " + json.dumps(res), flush=True)
         if name == "sobel":

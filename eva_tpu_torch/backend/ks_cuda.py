@@ -7,8 +7,10 @@ exception. There is no fallback: CUDA tensors either go through the
 kernels or raise. The plain PyTorch versions are ks.ks_mac_plain and
 ks.ks_epilogue_plain.
 
-`LAUNCHES` counts wrapper calls that launched: "ks_mac" one kernel,
-"ks_epilogue" its two (the key-row inverse NTTs, then the row pass).
+`LAUNCHES` counts wrapper calls that launched: "ks_mac" one kernel (a
+grid of thread-block clusters), "ks_epilogue" its two (the key-row
+inverse NTTs, and the row pass launched as their programmatic
+dependent).
 `MAX_BATCH` keeps the largest batch each wrapper launched with."""
 
 from __future__ import annotations
@@ -52,12 +54,32 @@ def _load(device: torch.device):
             lib.eva_ks_mac.restype = i
             lib.eva_ks_epilogue.argtypes = [p] * 13 + [i] * 5 + [p]
             lib.eva_ks_epilogue.restype = i
+            lib.eva_ks_info.argtypes = [i, i, ctypes.POINTER(i)]
+            lib.eva_ks_info.restype = i
             _lib = lib
         if device.index not in _ready_devices:
             with torch.cuda.device(device):
                 cuda_lib.raise_on("CUDA key switch init", _lib.eva_ks_init())
             _ready_devices.add(device.index)
     return _lib
+
+
+def kernel_info(logn: int, device: torch.device, n_key: int = 2) -> dict:
+    """Resource use of the kernels at a ring of 2^logn on `device`:
+    registers and local (spill) bytes per thread of each kernel (the row
+    kernel for `n_key` key primes), threads per block, and how many
+    clusters of c MAC blocks the device holds at once (c = 1 .. 8)."""
+    lib = _load(device)
+    out = (ctypes.c_int * 15)()
+    with torch.cuda.device(device):
+        cuda_lib.raise_on("CUDA key switch info",
+                          lib.eva_ks_info(logn, n_key, out))
+    names = ("ks_mac_cluster_kernel", "ks_epilogue_key_kernel",
+             "ks_epilogue_row_kernel")
+    return {"threads": out[6],
+            **{k: {"registers": out[2 * j], "local_bytes": out[2 * j + 1]}
+               for j, k in enumerate(names)},
+            "mac_max_active_clusters": {c: out[6 + c] for c in range(1, 9)}}
 
 
 def _shape(x: torch.Tensor, want, name: str) -> None:

@@ -66,17 +66,26 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         ntt_cuda.ntt_fwd(x[..., :512].contiguous(), small)
 
 
-def _ks_inputs(dev, n, batch, seed=3):
-    """Random inputs of the fused key switch at Sobel's level-0 shapes
-    (11 data primes, 2 key primes, alpha 2): (y, k0, k1, conv, owner,
-    x_ntt, acc0, acc1, ext_ops, n_key)."""
-    ctx = get_context((60, 20, 60, 60, 60, 60, 60), (), n, 1)
+# Contexts by key-prime count: (prime bits, key terms). Level 0 has six
+# data primes with one or three key primes, eleven with two (Sobel's).
+_KEY_CONTEXTS = {1: ((60, 40, 60, 30), 1),
+                 2: ((60, 20, 60, 60, 60, 60, 60), 1),
+                 3: ((60, 40, 60, 60, 30), 2)}
+
+
+def _ks_inputs(dev, n, batch, alpha=2, n_key=2, seed=3):
+    """Random inputs of the fused key switch at level 0 of the context
+    with n_key key primes (n_key 2: Sobel's 11 data primes): (y, k0, k1,
+    conv, owner, x_ntt, acc0, acc1, ext_ops, n_key)."""
+    bits, key_terms = _KEY_CONTEXTS[n_key]
+    ctx = get_context(bits, (), n, key_terms)
     primes = ctx.primes_at_level(0)
     basis = primes + ctx.key_primes
-    n_groups, _, conv_mont = _ks_dev_tables(ctx, 0, 2)
-    _, owner, _ = _ks_maps(ctx, 0, 2)
+    assert len(ctx.key_primes) == n_key
+    n_groups, _, conv_mont = _ks_dev_tables(ctx, 0, alpha)
+    _, owner, _ = _ks_maps(ctx, 0, alpha)
     rng = np.random.default_rng(seed)
-    y = np.zeros((batch, n_groups * 2, n), dtype=np.int64)
+    y = np.zeros((batch, n_groups * alpha, n), dtype=np.int64)
     for t, q in enumerate(primes):
         y[:, t] = rng.integers(0, q, (batch, n))
 
@@ -86,20 +95,25 @@ def _ks_inputs(dev, n, batch, seed=3):
 
     k0, k1 = (torch.stack([planes((), basis) for _ in range(n_groups)])
               for _ in range(2))
-    tensors = (torch.from_numpy(y).reshape(batch, n_groups, 2, n), k0, k1,
-               torch.from_numpy(conv_mont[..., 0].astype(np.int64)),
+    tensors = (torch.from_numpy(y).reshape(batch, n_groups, alpha, n), k0,
+               k1, torch.from_numpy(conv_mont[..., 0].astype(np.int64)),
                torch.from_numpy(np.concatenate(
-                   [owner, [-1] * len(ctx.key_primes)]).astype(np.int64)),
+                   [owner, [-1] * n_key]).astype(np.int64)),
                planes((batch,), primes), planes((batch,), basis),
                planes((batch,), basis))
-    return (*(t.to(dev) for t in tensors), level_ops(basis, n, dev),
-            len(ctx.key_primes))
+    return (*(t.to(dev) for t in tensors), level_ops(basis, n, dev), n_key)
 
 
-@pytest.mark.parametrize("n,batch", [(1024, 4), (16384, 1), (16384, 4)])
-def test_cuda_key_switch_matches_plain(cuda, n, batch):
+@pytest.mark.parametrize("n_key", [1, 2, 3])
+@pytest.mark.parametrize("alpha", [1, 2])
+@pytest.mark.parametrize("batch", [1, 3, 4])
+@pytest.mark.parametrize("n", [1024, 16384, 32768])
+def test_cuda_key_switch_matches_plain(cuda, n, batch, alpha, n_key):
+    """The cluster MAC (3 to 11 digit groups, so up to two digits per
+    cluster rank, more where the card holds too few clusters) and the
+    overlapped epilogue, bit for bit."""
     y, k0, k1, conv, owner, x_ntt, acc0, acc1, ext, n_key = _ks_inputs(
-        cuda, n, batch)
+        cuda, n, batch, alpha, n_key, seed=n + 10 * batch + 100 * alpha)
     for xn in (x_ntt, None):
         launches = ks_cuda.LAUNCHES["ks_mac"]
         got = ks.ks_mac(y, k0, k1, conv, owner, ext, xn)
@@ -112,6 +126,18 @@ def test_cuda_key_switch_matches_plain(cuda, n, batch):
         assert ks_cuda.LAUNCHES["ks_epilogue"] == launches + 1
         want = ks.ks_epilogue_plain(acc0, acc1, ext, n_key, out_ntt)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_cuda_key_switch_kernels_fit_the_card(cuda):
+    """Every ring size holds a cluster of 8 MAC blocks (the init raises
+    otherwise), and the MAC kernel of the main path's ring does not spill
+    more than a few words."""
+    for logn in range(10, 16):
+        info = ks_cuda.kernel_info(logn, cuda)
+        assert min(info["mac_max_active_clusters"].values()) > 0
+        assert info["threads"] == min(1024, (1 << logn) // 8)
+    assert ks_cuda.kernel_info(14, cuda)["ks_mac_cluster_kernel"][
+        "local_bytes"] <= 64
 
 
 def test_cuda_key_switch_wrappers_reject_what_the_kernels_do_not_take(cuda):
