@@ -12,8 +12,12 @@ Phases (any failure exits non-zero and prints no result line):
   2. Kernels: each kernel against its plain PyTorch version on the card,
      on random reduced residues from a fixed seed; equality by
      torch.equal (exact modular arithmetic: the tolerance is zero).
-     NTT: at the main path's shape [4, 13, 16384] (Sobel's 11 data
-     primes + 2 key primes) and at N = 1024, 2048, 32768. Fused key
+     NTT: at NTT_SHAPES, the main path's shapes at N = 16384 ([11],
+     [13], [2] and [4, 13] rows: Sobel's level 0 at batch 1, data plus
+     key primes, a deep level, a batch of 4) and N = 1024, 2048, 32768,
+     each at the cluster size the kernel library picks and at every size
+     it can be forced to (1 to 8 blocks a row); the NTT kernels'
+     registers, spill bytes and clusters held are printed first. Fused key
      switch (MAC, epilogue), with and without x_ntt, out_ntt True and
      False, at KS_SHAPES: Sobel's level 0 (n_cur 11, n_key 2, alpha 2:
      six digit groups) at B = 1, 4 and 3, Harris's level 0 (four
@@ -29,7 +33,9 @@ Phases (any failure exits non-zero and prints no result line):
      the port's numpy backend on the same keys and inputs, the
      decryption must match the plaintext reference, and every kernel of
      the path must have been launched (launch counts > 0, plain-version
-     calls == 0). `execute` is timed as the median of 5 warm runs. Sobel
+     calls == 0). `execute` is timed as the median of 5 warm runs; one
+     more execute counts the NTT launches by row count, and one under
+     torch.profiler must show NTT and key-switch kernel time. Sobel
      runs once more with EVA_TPU_NO_FUSED_KS=1 (the structured key
      switch) under the same checks; one line compares the two. Then
      execute_batch of 4 Sobel requests and execute_pipelined over 8,
@@ -206,49 +212,93 @@ def ntt_bound_ms(rows: int, n: int, n_sub: int):
     return bound(rows * n * 8 * 2 + n_sub * n * 4 * 2, ntt_ops(rows, n))
 
 
-def kernel_phase(device):
-    """Phase 2: the NTT kernels against their plain version; returns the
-    per-kernel numbers at the main path's shape."""
+# NTT shapes held to the plain versions, at the cluster size the kernel
+# library picks and at every size it can be forced to: (label, N, leading
+# shape, prime count). The first four are the main path's at N = 16384:
+# Sobel's level 0 at batch 1 (11 data primes), data plus key primes, a
+# deep level, and a batch of 4 over the extended basis.
+NTT_SHAPES = (
+    ("sobel_l0", 16384, (), 11),
+    ("data_key", 16384, (), 13),
+    ("deep", 16384, (), 2),
+    ("batch4", 16384, (4,), 13),
+    ("n1024", 1024, (4,), 13),
+    ("n2048", 2048, (4,), 13),
+    ("n32768", 32768, (2,), 13),
+)
+
+
+def ntt_inputs(device, n: int, lead, n_sub: int):
+    """(ops, x): the level ops of the first n_sub primes of Sobel's chain
+    at ring n, and random reduced planes lead + [n_sub, n] on device."""
     import torch
-    from eva_tpu_torch.backend import ntt_cuda
     from eva_tpu_torch.backend.tables import DeviceLevelOps
     from eva_tpu_torch.crypto.context import get_context
 
+    primes = list(get_context(tuple(SOBEL_BITS), (), n, 1).all_primes)
+    ops = DeviceLevelOps(primes[:n_sub], n, device)
+    rng = np.random.default_rng(SEED + n + n_sub + len(lead))
+    x = torch.from_numpy(np.stack(
+        [rng.integers(0, q, tuple(lead) + (n,)) for q in ops.primes],
+        axis=len(lead))).to(device)
+    return ops, x
+
+
+def forced_clusters(n: int, device):
+    """The cluster sizes the NTT kernels can be forced to at ring n on
+    this card (N / C >= 1024 and a cluster of C fits)."""
+    from eva_tpu_torch.backend import ntt_cuda
+    info = ntt_cuda.kernel_info(int(math.log2(n)), device)["clusters"]
+    return [c for c, v in info.items()
+            if v["threads"] and v["held_fwd"] and v["held_inv"]]
+
+
+def kernel_phase(device):
+    """Phase 2: the NTT kernels against their plain version at every
+    NTT_SHAPES shape, chosen and forced cluster sizes; returns the
+    per-kernel numbers by shape label."""
+    import torch
+    from eva_tpu_torch.backend import ntt_cuda
+
+    for logn in (14, 15):
+        print(f"kernels ntt resources logn={logn} "
+              + json.dumps(ntt_cuda.kernel_info(logn, device)), flush=True)
     results = {}
-    for n, batch in ((16384, 4), (1024, 4), (2048, 4), (32768, 2)):
-        ctx = get_context(tuple(SOBEL_BITS), (), n, 1)
-        primes = list(ctx.all_primes)
-        ops = DeviceLevelOps(primes, n, device)
-        rng = np.random.default_rng(SEED + n)
-        x = torch.from_numpy(np.stack(
-            [rng.integers(0, q, (batch, n)) for q in primes], axis=1)
-        ).to(device)
-        f_k = ntt_cuda.ntt_fwd(x, ops)
+    for label, n, lead, n_sub in NTT_SHAPES:
+        ops, x = ntt_inputs(device, n, lead, n_sub)
         f_p = ops._fwd_merged(x)
-        i_k = ntt_cuda.ntt_inv(f_k, ops)
-        i_p = ops._inv_merged(f_k)
-        torch.cuda.synchronize()
-        checks = {"fwd": torch.equal(f_k, f_p), "inv": torch.equal(i_k, i_p),
-                  "roundtrip": torch.equal(i_k, x)}
-        print(f"kernels N={n} shape={list(x.shape)} primes={len(primes)} "
-              f"{checks}", flush=True)
-        if not all(checks.values()):
-            raise AssertionError(f"NTT kernel disagrees at N={n}: {checks}")
+        i_p = ops._inv_merged(f_p)
         rows = x.numel() // n
-        bms, bby = ntt_bound_ms(rows, n, len(primes))
+        info = ntt_cuda.kernel_info(ops.logn, device)
+        chosen = {name: info[f"{name}_kernel"]["cluster"]
+                  for name in ("ntt_fwd", "ntt_inv")}
+        for c in [0] + forced_clusters(n, device):
+            f_k = ntt_cuda.ntt_fwd(x, ops, _cluster=c)
+            i_k = ntt_cuda.ntt_inv(f_p, ops, _cluster=c)
+            torch.cuda.synchronize()
+            checks = {"fwd": torch.equal(f_k, f_p),
+                      "inv": torch.equal(i_k, i_p),
+                      "roundtrip": torch.equal(i_k, x)}
+            print(f"kernels ntt {label} shape={list(x.shape)} "
+                  f"cluster={c or chosen} {checks}", flush=True)
+            if not all(checks.values()):
+                raise AssertionError(f"NTT kernel disagrees: {label} "
+                                     f"cluster {c or chosen}: {checks}")
+        f_k = ntt_cuda.ntt_fwd(x, ops)
+        i_k = ntt_cuda.ntt_inv(f_p, ops)
+        bms, bby = ntt_bound_ms(rows, n, n_sub)
         for name, kern, plain, arg, got, want in (
                 ("ntt_fwd", ntt_cuda.ntt_fwd, ops._fwd_merged, x, f_k, f_p),
-                ("ntt_inv", ntt_cuda.ntt_inv, ops._inv_merged, f_k, i_k,
+                ("ntt_inv", ntt_cuda.ntt_inv, ops._inv_merged, f_p, i_k,
                  i_p)):
-            res = {"shape": list(arg.shape),
+            res = {"shape": list(arg.shape), "cluster": chosen[name],
                    "ms": graph_ms(lambda: kern(arg, ops), 50),
                    "eager_ms": eager_ms(lambda: kern(arg, ops), 200),
                    "plain_ms": graph_ms(lambda: plain(arg), 5, reps=3),
                    "bound_ms": bms, "bound_by": bby,
                    "max_abs_err": int((got - want).abs().max().item())}
-            print(f"kernel {name} N={n} " + json.dumps(res), flush=True)
-            if n == 16384:  # the main path's ring size
-                results[name] = res
+            print(f"kernel {name} {label} " + json.dumps(res), flush=True)
+            results[(name, label)] = res
     return results
 
 
@@ -418,14 +468,23 @@ def _counters():
 
 
 def reset_counts():
+    from eva_tpu_torch.backend import ntt_cuda
     for counts in _counters():
         for k in counts:
             counts[k] = 0
+    for rows in ntt_cuda.ROWS.values():
+        rows.clear()
 
 
 def read_counts():
     """{counter name: {kernel: count}} (see COUNTERS)."""
     return {name: dict(c) for name, c in zip(COUNTERS, _counters())}
+
+
+def read_rows():
+    """{NTT kernel: {rows: launches}}: the NTT launches by row count."""
+    from eva_tpu_torch.backend import ntt_cuda
+    return {k: dict(sorted(v.items())) for k, v in ntt_cuda.ROWS.items()}
 
 
 def check_counts(name, counts, fused: bool):
@@ -495,6 +554,9 @@ def run_program(name, build, seed, device, reps=5):
     mse = valuation_mse(dec, ref)
     ref_ms = float(np.mean([np.mean(np.square(v)) for v in ref.values()]))
     times = execute_ms(pub, compiled, enc, reps)
+    reset_counts()
+    pub.execute(compiled, enc)
+    rows = read_rows()
     return {
         "N": params.poly_modulus_degree, "prime_bits": list(params.prime_bits),
         "rotations": len(params.rotations),
@@ -503,10 +565,11 @@ def run_program(name, build, seed, device, reps=5):
         "compile_s": t_compile, "keygen_s": t_keygen,
         "first_execute_s": t_first, "mse": mse, "ref_mean_square": ref_ms,
         "execute_ms_median": statistics.median(times),
-        "execute_ms_all": times,
+        "execute_ms_all": times, "ntt_rows_per_execute": rows,
     }, (compiled, pub, enc, sig, ref_out)
 
 
+NTT_KERNELS = ("ntt_fwd_kernel", "ntt_inv_kernel")
 KS_KERNELS = ("ks_mac_cluster_kernel", "ks_epilogue_key_kernel",
               "ks_epilogue_row_kernel")
 
@@ -540,7 +603,7 @@ def profile_execute(name, pub, compiled, enc, top: int = 10):
         return sum(r[0] for r in rows if any(k in r[2] for k in names)) / 1e3
 
     return {"device_ms": sum(r[0] for r in rows) / 1e3,
-            "ntt_ms": ms(("ntt_fwd_kernel", "ntt_inv_kernel")),
+            "ntt_ms": ms(NTT_KERNELS),
             "ks_ms": ms(KS_KERNELS),
             "ks_kernel_launches": {k: sum(r[1] for r in rows if k in r[2])
                                    for k in KS_KERNELS},
@@ -657,9 +720,10 @@ def main() -> int:
             raise AssertionError(f"{name}: MSE {res['mse']} >= "
                                  f"{MSE_LIMIT[name]}")
         res["profile"] = profile_execute(name, pub, compiled, enc)
-        if res["profile"] is None or not res["profile"]["ks_ms"] > 0:
-            raise AssertionError(f"{name}: the profile shows no key-switch "
-                                 f"kernel time: {res['profile']}")
+        prof = res["profile"]
+        if prof is None or not (prof["ks_ms"] > 0 and prof["ntt_ms"] > 0):
+            raise AssertionError(f"{name}: the profile shows no NTT or no "
+                                 f"key-switch kernel time: {prof}")
         paths[name] = res
         print(f"path {name} " + json.dumps(res), flush=True)
         if name == "sobel":
@@ -684,6 +748,7 @@ def main() -> int:
     paths["sobel_pipelined8"] = batch["pipelined8"]
 
     # -- 4. the kernel line, then the device line ----------------------------
+    ntt_info = ntt_cuda.kernel_info(14, device)
     kernels = []
     for name, counter, source, replaces, also in (
             ("ntt_fwd", "ntt_launches", "ntt.cu",
@@ -693,7 +758,8 @@ def main() -> int:
             ("ks_mac", "ks_launches", "ks.cu", "pallas_ks.py:68", None),
             ("ks_epilogue", "ks_launches", "ks.cu", "pallas_ks.py:145",
              None)):
-        k = kern[name] if name in kern else kern[(name, 1)]
+        ntt = counter == "ntt_launches"
+        k = kern[(name, "sobel_l0" if ntt else 1)]
         entry = {
             "name": name, "route": "cuda",
             "source": f"eva_tpu_torch/csrc/{source}",
@@ -707,10 +773,18 @@ def main() -> int:
             "shape": k["shape"]}
         if also:
             entry["also_replaces"] = f"eva_tpu/backend/{also}"
-        if (name, 4) in kern:
-            entry["batch4"] = {f: kern[(name, 4)][f] for f in (
-                "shape", "ms", "eager_ms", "plain_ms", "bound_ms",
-                "bound_by")}
+        fields = ("shape", "ms", "eager_ms", "plain_ms", "bound_ms",
+                  "bound_by")
+        if ntt:
+            res = ntt_info[f"{name}_kernel"]
+            entry.update(cluster=k["cluster"], registers=res["registers"],
+                         local_bytes=res["local_bytes"])
+            entry["by_shape"] = {
+                label: {f: kern[(name, label)][f]
+                        for f in fields + ("cluster",)}
+                for label, *_ in NTT_SHAPES}
+        else:
+            entry["batch4"] = {f: kern[(name, 4)][f] for f in fields}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

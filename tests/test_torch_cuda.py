@@ -35,19 +35,52 @@ def _planes(seed, primes, shape):
         [rng.integers(0, q, shape) for q in primes], axis=-2))
 
 
-@pytest.mark.parametrize("n", [1024, 2048, 16384, 32768])
-def test_cuda_ntt_matches_plain(cuda, n):
-    primes = [q for e in build_chain([60, 20, 60, 60], n) for q in e.primes]
-    dev = DeviceLevelOps(primes, n, cuda)
-    x = _planes(n, primes, (4, n)).to(cuda)
+# (N, rows, forced cluster size): the main path's row counts (1 to 13 at
+# batch 1, 52 at batch 4) at every ring size, each at the cluster size the
+# kernel library picks (0) and at every size it can be forced to (a
+# segment of N / C >= 1024 words).
+_NTT_CASES = [(n, rows, c) for n in (1024, 2048, 16384, 32768)
+              for rows in (1, 2, 11, 13, 52) for c in (0, 1, 2, 4, 8)
+              if n // max(c, 1) >= 1024]
+
+
+@pytest.mark.parametrize("n,rows,cluster", _NTT_CASES)
+def test_cuda_ntt_matches_plain(cuda, n, rows, cluster):
+    """Each row split over a cluster, bit for bit: rows > 13 are batches
+    of 13 primes; forward, inverse and the round trip."""
+    primes = [q for e in build_chain([60, 20, 60, 60, 60, 60, 60], n)
+              for q in e.primes]
+    n_sub = min(rows, len(primes))
+    dev = DeviceLevelOps(primes[:n_sub], n, cuda)
+    x = _planes(n + rows, dev.primes, (rows // n_sub, n)).to(cuda)
     launches = dict(ntt_cuda.LAUNCHES)
-    f = dev.ntt(x)
-    back = dev.intt(f)
+    if cluster:
+        f = ntt_cuda.ntt_fwd(x, dev, _cluster=cluster)
+        back = ntt_cuda.ntt_inv(f, dev, _cluster=cluster)
+    else:
+        f = dev.ntt(x)
+        back = dev.intt(f)
     assert ntt_cuda.LAUNCHES["ntt_fwd"] == launches["ntt_fwd"] + 1
     assert ntt_cuda.LAUNCHES["ntt_inv"] == launches["ntt_inv"] + 1
     assert torch.equal(f, dev._fwd_merged(x))
     assert torch.equal(back, dev._inv_merged(f))
     assert torch.equal(back, x)
+
+
+def test_cuda_ntt_kernels_fit_the_card(cuda):
+    """No spills at any ring size; at the main path's ring the chooser
+    takes clusters of 8, with 8 words a thread, and the card holds them."""
+    for logn in range(10, 16):
+        info = ntt_cuda.kernel_info(logn, cuda)
+        for name in ("ntt_fwd_kernel", "ntt_inv_kernel"):
+            assert info[name]["local_bytes"] == 0, (name, info[name])
+        for name, held in (("ntt_fwd_kernel", "held_fwd"),
+                           ("ntt_inv_kernel", "held_inv")):
+            c = info[name]["cluster"]
+            assert c == min(8, (1 << logn) // 1024)
+            assert info["clusters"][c][held] > 0
+            assert info["clusters"][c]["threads"] == min(
+                1024, (1 << logn) // c // 8)
 
 
 def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda):
@@ -64,6 +97,11 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     small = DeviceLevelOps(primes, 512, cuda)
     with pytest.raises(ValueError, match="power of two"):
         ntt_cuda.ntt_fwd(x[..., :512].contiguous(), small)
+    with pytest.raises(ValueError, match="aligned"):
+        ntt_cuda.ntt_inv(x.view(-1)[1:1 + len(primes) * n].view(
+            1, len(primes), n), dev)
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        ntt_cuda.ntt_fwd(x, dev, _cluster=2)  # N / 2 < 1024 words
 
 
 # Contexts by key-prime count: (prime bits, key terms). Level 0 has six
