@@ -29,18 +29,30 @@ Phases (any failure exits non-zero and prints no result line):
      around CUDA-graph replays; eager per-call times beside them.
   3. Main path: Sobel and Harris 90x90 (N=16384) through compile ->
      generate_keys (the card) -> encrypt -> execute -> decrypt, on the
-     fused key switch. The output ciphertexts must be bit-identical to
+     fused key switch. `execute` runs each program as one captured CUDA
+     graph: its first call warms up eagerly, captures and replays, every
+     later call replays. The output ciphertexts must be bit-identical to
      the port's numpy backend on the same keys and inputs, the
      decryption must match the plaintext reference, and every kernel of
      the path must have been launched (launch counts > 0, plain-version
-     calls == 0). `execute` is timed as the median of 5 warm runs; one
-     more execute counts the NTT launches by row count, and one under
-     torch.profiler must show NTT and key-switch kernel time. Sobel
-     runs once more with EVA_TPU_NO_FUSED_KS=1 (the structured key
-     switch) under the same checks; one line compares the two. Then
-     execute_batch of 4 Sobel requests and execute_pipelined over 8,
-     each output bit-identical to its own sequential execute, with the
-     key-switch kernels launched at batch 4.
+     calls == 0; a replay adds the launches its capture counted).
+     `execute` is timed as the median of 5 warm runs; one more execute
+     counts the NTT launches by row count. Then, for each program, the
+     captured execute against the eager one (the private switch
+     TorchProgram._capture off): bit-identical outputs, both wall
+     medians, the device busy time, idle share and device ops of one
+     replayed and one eager execute under torch.profiler (the replay's
+     kernel launches by name, and the eager execute's launch counters,
+     must equal the counts of the capture); the capture's seconds and
+     graph pool bytes; and the host time of one replayed execute by
+     step. Sobel runs once more with
+     EVA_TPU_NO_FUSED_KS=1 (the structured key switch, its own graph)
+     under the same checks; one line compares the two. Sobel 128x128
+     (vec_size 16384 at N=16384: two shards, sharded rotations) runs
+     under the same checks and its own MSE limit. Then, all through
+     graphs, execute_batch of 4 Sobel requests and execute_pipelined
+     over 8, each output bit-identical to its own sequential execute,
+     with the key-switch kernels launched at batch 4.
   4. One JSON line of kernel numbers, then the device line last.
 
 Imports nothing of JAX and nothing of the JAX package eva_tpu."""
@@ -81,7 +93,7 @@ HARRIS_BITS = [60, 60, 60, 60, 60]
 # fresh key sets it ran 2.9e-4 (min), 4.1e-4 (median), 1.3e-3 (max)
 # (`python3 mse_draws.py harris 48`, host numpy backend, whose
 # ciphertexts equal the card's). The limit is about 4x that max.
-MSE_LIMIT = {"sobel": 1e-6, "harris": 5e-3}
+MSE_LIMIT = {"sobel": 1e-6, "harris": 5e-3, "sobel128": 5e-13}
 
 
 def build_sobel(h=90, w=90):
@@ -605,9 +617,132 @@ def profile_execute(name, pub, compiled, enc, top: int = 10):
     return {"device_ms": sum(r[0] for r in rows) / 1e3,
             "ntt_ms": ms(NTT_KERNELS),
             "ks_ms": ms(KS_KERNELS),
-            "ks_kernel_launches": {k: sum(r[1] for r in rows if k in r[2])
-                                   for k in KS_KERNELS},
+            "kernel_launches": {k: sum(r[1] for r in rows if k in r[2])
+                                for k in NTT_KERNELS + KS_KERNELS},
             "wall_ms": wall, "device_ops": sum(r[1] for r in rows)}
+
+
+def captured_entry(pub, compiled, enc):
+    """The captured graph that `execute` replays for `enc`."""
+    ex = pub._executor_for(compiled)
+    tp = ex._get_torch_program()
+    return tp._captured[tp._capture_key(
+        *tp._split([ex._host_phase(enc)[0]], False))]
+
+
+def check_replay_launches(name, prof, launches):
+    """The kernels one replayed execute ran on the device (profiler, by
+    name) against the launches its capture counted: equal, and none
+    zero."""
+    ks = launches["ks_launches"]
+    want = {"ntt_fwd_kernel": launches["ntt_launches"].get("ntt_fwd", 0),
+            "ntt_inv_kernel": launches["ntt_launches"].get("ntt_inv", 0),
+            "ks_mac_cluster_kernel": ks.get("ks_mac", 0),
+            "ks_epilogue_key_kernel": ks.get("ks_epilogue", 0),
+            "ks_epilogue_row_kernel": ks.get("ks_epilogue", 0)}
+    got = (prof or {}).get("kernel_launches")
+    if got != want or not min(want.values()) > 0:
+        raise AssertionError(f"{name}: the replayed execute launched "
+                             f"{got}, its capture counted {want}")
+
+
+def replay_phase(name, pub, compiled, enc, ref_out, reps=5):
+    """One program's captured graph: a replay's output against the numpy
+    backend, its launch counters against the capture's counts, its wall
+    median, its profile (kernel launches by name against the capture's
+    counts), and the host time of one replayed execute by step."""
+    entry = captured_entry(pub, compiled, enc)
+    reset_counts()
+    out = pub.execute(compiled, enc)
+    counts = read_counts()
+    check_equal(f"{name} replay against the numpy backend", ref_out, out)
+    for counter, key in (("ntt_launches", "ntt_launches"),
+                         ("ks_launches", "ks_launches")):
+        got = {k: v for k, v in counts[counter].items() if v}
+        if got != entry.launches[key]:
+            raise AssertionError(f"{name}: a replay counted {got}, its "
+                                 f"capture {entry.launches[key]}")
+    times = execute_ms(pub, compiled, enc, reps)
+    prof = profile_execute(name, pub, compiled, enc)
+    check_replay_launches(name, prof, entry.launches)
+    wall = statistics.median(times)
+    return {"execute_ms_median": wall, "execute_ms_all": times,
+            "profile": prof, "idle_share": 1 - prof["device_ms"] / wall,
+            "capture_s": entry.capture_s,
+            "graph_pool_bytes": entry.pool_bytes,
+            "launches_per_execute": entry.launches,
+            "host_ms": host_steps(pub, compiled, enc, reps)}
+
+
+def host_steps(pub, compiled, enc, reps):
+    """Medians over `reps` replayed executes of each step's ms on the
+    host: the host planner (`_host_phase`: raw values, encode-cache
+    look-ups), splitting the valuation into host arrays (`_split`) and
+    finding its graph, staging the inputs into the graph's static
+    tensors (`fill`), launching the graph (`replay`), enqueueing the
+    output copies, waiting for the device, and building the host
+    ciphertexts (`_result`)."""
+    import torch
+    from eva_tpu_torch.backend.executor_torch import _copy_out
+    ex = pub._executor_for(compiled)
+    tp = ex._get_torch_program()
+    steps = {k: [] for k in ("host_phase", "split", "fill", "replay",
+                             "enqueue_out", "device_wait", "result")}
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        hv = ex._host_phase(enc)[0]
+        t.append(time.perf_counter())
+        parts = tp._split([hv], False)
+        entry = tp._captured[tp._capture_key(*parts)]
+        t.append(time.perf_counter())
+        entry.fill(*parts[:2])
+        t.append(time.perf_counter())
+        entry.replay()
+        t.append(time.perf_counter())
+        host, done = _copy_out(entry.out)
+        t.append(time.perf_counter())
+        done.synchronize()
+        t.append(time.perf_counter())
+        tp._result(host)
+        t.append(time.perf_counter())
+        for k, a, b in zip(steps, t, t[1:]):
+            steps[k].append((b - a) * 1e3)
+    return {k: statistics.median(v) for k, v in steps.items()}
+
+
+def capture_phase(name, pub, compiled, enc, ref_out, reps=5):
+    """Captured against eager for one program: the replay phase, then
+    the same execute with TorchProgram._capture off (eager launches),
+    bit-identical to the replay, with its counts, wall median and
+    profile."""
+    from eva_tpu_torch.backend.executor_torch import TorchProgram
+
+    res = replay_phase(name, pub, compiled, enc, ref_out, reps)
+    captured = pub.execute(compiled, enc)
+    TorchProgram._capture = False
+    try:
+        reset_counts()
+        eager = pub.execute(compiled, enc)
+        counts = read_counts()
+        times = execute_ms(pub, compiled, enc, reps)
+        prof = profile_execute(f"{name}_eager", pub, compiled, enc, top=0)
+    finally:
+        TorchProgram._capture = True
+    if prof is None:
+        raise AssertionError(f"{name}: the profiler saw no device time")
+    check_equal(f"{name}: eager against captured", captured, eager)
+    for counter in ("ntt_launches", "ks_launches"):
+        got = {k: v for k, v in counts[counter].items() if v}
+        if got != res["launches_per_execute"][counter]:
+            raise AssertionError(f"{name}: eager launched {got}, the "
+                                 f"capture counted "
+                                 f"{res['launches_per_execute'][counter]}")
+    wall = statistics.median(times)
+    res["eager"] = {"execute_ms_median": wall, "execute_ms_all": times,
+                    "profile": prof,
+                    "idle_share": 1 - prof["device_ms"] / wall}
+    return res
 
 
 def structured_run(pub, compiled, enc, ref_out, reps=5):
@@ -645,6 +780,9 @@ def batch_phase(pub, compiled, sig, seed, reps=3):
     outs = pub.execute_batch(compiled, encs[:4])
     batch_counts = read_counts()
     check_counts("sobel batch", batch_counts, fused=True)
+    tp = pub._executor_for(compiled)._get_torch_program()
+    if not any(key[0][0][2][0] == 4 for key in tp._captured):
+        raise AssertionError("sobel batch: no graph captured at batch 4")
     if set(batch_counts["ks_max_batch"].values()) != {4}:
         raise AssertionError(f"sobel batch: key-switch kernels launched at "
                              f"batch {batch_counts['ks_max_batch']}, not 4")
@@ -711,23 +849,46 @@ def main() -> int:
 
     # -- 3. the main path ----------------------------------------------------
     paths = {}
-    for name, build, seed in (("sobel", build_sobel, 11),
-                              ("harris", build_harris, 13)):
+    programs = (("sobel", build_sobel, 11), ("harris", build_harris, 13),
+                ("sobel128", lambda: build_sobel(128, 128), 19))
+    for name, build, seed in programs:
         res, (compiled, pub, enc, sig, ref_out) = run_program(
             name, build, seed, None)
         check_counts(name, res, fused=True)
         if not res["mse"] < MSE_LIMIT[name]:
             raise AssertionError(f"{name}: MSE {res['mse']} >= "
                                  f"{MSE_LIMIT[name]}")
-        res["profile"] = profile_execute(name, pub, compiled, enc)
-        prof = res["profile"]
-        if prof is None or not (prof["ks_ms"] > 0 and prof["ntt_ms"] > 0):
+        res["shards"] = pub._executor_for(compiled)._get_torch_program().k
+        if res["shards"] != (2 if name == "sobel128" else 1):
+            raise AssertionError(f"{name}: {res['shards']} shards")
+        res["captured"] = capture_phase(name, pub, compiled, enc, ref_out)
+        prof = res["profile"] = res["captured"]["profile"]
+        if not (prof["ks_ms"] > 0 and prof["ntt_ms"] > 0):
             raise AssertionError(f"{name}: the profile shows no NTT or no "
                                  f"key-switch kernel time: {prof}")
         paths[name] = res
         print(f"path {name} " + json.dumps(res), flush=True)
         if name == "sobel":
             sobel = (compiled, pub, enc, sig, ref_out)
+
+    def both(res):
+        cap = res["captured"]
+        return {
+            "captured": {"execute_ms_median": cap["execute_ms_median"],
+                         "device_ms": cap["profile"]["device_ms"],
+                         "device_ops": cap["profile"]["device_ops"],
+                         "idle_share": cap["idle_share"],
+                         "capture_s": cap["capture_s"],
+                         "graph_pool_bytes": cap["graph_pool_bytes"],
+                         "host_ms": cap["host_ms"]},
+            "eager": {"execute_ms_median":
+                      cap["eager"]["execute_ms_median"],
+                      "device_ms": cap["eager"]["profile"]["device_ms"],
+                      "device_ops": cap["eager"]["profile"]["device_ops"],
+                      "idle_share": cap["eager"]["idle_share"]}}
+
+    print("captured_vs_eager " + json.dumps(
+        {name: both(paths[name]) for name, *_ in programs}), flush=True)
 
     compiled, pub, enc, sig, ref_out = sobel
     structured = structured_run(pub, compiled, enc, ref_out)
@@ -766,6 +927,9 @@ def main() -> int:
             "replaces": f"eva_tpu/backend/{replaces}",
             "launches": paths["sobel"][counter][name],
             "launches_by_path": {p: paths[p][counter][name] for p in paths},
+            "launches_per_execute": {
+                p: paths[p]["captured"]["launches_per_execute"][counter].get(
+                    name, 0) for p in paths if "captured" in paths[p]},
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "eager_ms": k["eager_ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],

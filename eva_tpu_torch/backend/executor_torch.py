@@ -2,8 +2,13 @@
 limb-plane tensors on one torch device.
 
 Port of the single-device part of eva_tpu/backend/executor_jax.py. The
-JAX package traces the DAG into one jitted function; PyTorch runs
-eagerly, so `_traced` here simply walks the DAG and launches each op.
+JAX package traces the DAG into one jitted executable per input tree
+(JaxProgram._jitted). The port's counterpart is one CUDA graph per input
+key (_Captured): on a CUDA device the first execute for a key runs
+`_traced` once eagerly on a side stream, which builds every lazy table,
+constant and kernel library, then captures it into a torch.cuda.CUDAGraph
+over static input tensors; every execute copies its inputs into those
+tensors and replays the graph. On the CPU `_traced` runs eagerly.
 Every rescale, relinearization and rotation runs the negacyclic NTT
 (tables.DeviceLevelOps.ntt/intt: the CUDA kernels on a GPU).
 
@@ -18,20 +23,26 @@ selects the structured key switch everywhere instead: digits, MAC
 against the structured key layout, then iNTT + P-division + NTT. Both
 give ciphertexts bit-identical to the JAX package.
 
+Big vectors (vec_size > N/2) are sharded across k = vec_size / (N/2)
+ciphertexts on a shard axis ([..., k, n_sub, N] planes; crypto/bigvec)
+and rotated by _rotate_sharded, as in the JAX package: a roll of the
+shard axis and at most two structured key switches.
+
 Host/device split follows the protocol roles: encode/encrypt/decrypt are
 host-side numpy; `execute` (server role) is this module, one valuation
 at a time (`run`), a batch stacked on a leading axis (`run_batched`), or
 a stream with the next execution enqueued before the last one's outputs
 are fetched (`run_pipelined`). Raw subgraphs stay host-side.
 
-Not ported yet (a program that needs them raises NotImplementedError):
-sharded big vectors (vec_size > N/2) and mesh (multi-device)
-execution."""
+Not ported yet (raises NotImplementedError in the runtime): mesh
+(multi-device) execution."""
 
 from __future__ import annotations
 
+import gc
 import os
-from collections import OrderedDict
+import time
+from collections import Counter, OrderedDict
 from functools import lru_cache
 from typing import Dict, List, Tuple
 
@@ -39,11 +50,12 @@ import numpy as np
 import torch
 
 from ..crypto import keys as K
+from ..crypto.bigvec import rotation_plan
 from ..crypto.ciphertext import Ciphertext, Plaintext
 from ..crypto.context import CKKSContext
 from ..ir import ROTATION, Op, Program, Term, Type
 from ..passes import rotation_hoist_sources
-from . import resolve_device
+from . import ks_cuda, ntt_cuda, resolve_device
 from .modmath import to_mont, to_mont_rows as _to_mont_rows
 from .ks import MAX_KEY_PRIMES, divide_last_planes, ks_epilogue, ks_mac
 from .tables import DeviceLevelOps, level_ops
@@ -152,6 +164,22 @@ class StructDigits:
         self.a = a
         self.b = b
         self.n_groups = n_groups
+
+    def shard_window(self, shift: int, lo: int, hi: int):
+        """Roll the SHARD axis (big-vector ciphertexts; crypto/bigvec) by
+        -shift and keep shards [lo, hi): selects the digit stacks of the
+        source shards feeding one intra-rotation group. own/b carry the
+        shard axis 3/4 dims from the end; a has an extra digit axis."""
+        def f(arr, off):
+            ax = arr.dim() - off
+            if shift:
+                arr = torch.roll(arr, -shift, dims=ax)
+            return arr.narrow(ax, lo, hi - lo)
+        return StructDigits(
+            f(self.own, 3),
+            None if self.a is None else f(self.a, 4),
+            f(self.b, 4),
+            self.n_groups)
 
 
 class DeviceKeys:
@@ -277,7 +305,14 @@ def device_keys(ctx: CKKSContext, keys: K.KeySet, device) -> DeviceKeys:
 
 
 class TorchProgram:
-    """Runs a compiled EVA program eagerly on one torch device."""
+    """Runs a compiled EVA program on one torch device: through one
+    captured CUDA graph per input key on a CUDA device, eagerly on the
+    CPU."""
+
+    # Private switch: False runs `_traced` eagerly on a CUDA device too,
+    # so that chip_smoke.py, tools/cuda_ab.py and the GPU tests can hold
+    # captured runs against eager ones in one process.
+    _capture = True
 
     def __init__(self, program: Program, ctx: CKKSContext, keys: K.KeySet,
                  plan, types, order: List[Term], device):
@@ -288,10 +323,9 @@ class TorchProgram:
         self.types = types
         self.order = order
         self.device = resolve_device(device)
-        if program.vec_size > ctx.n // 2:
-            raise NotImplementedError(
-                "torch backend: sharded big vectors (vec_size > N/2) are "
-                "not ported yet")
+        # Shards per logical vector (big-vector extension, crypto/bigvec):
+        # ciphertext planes carry a leading shard axis when k > 1.
+        self.k = max(1, program.vec_size // (ctx.n // 2))
         self.dkeys = device_keys(ctx, keys, self.device)
         # Nodes consumed by fused pairs, in both adjacency orders.
         self._fused_rescales = {
@@ -309,8 +343,10 @@ class TorchProgram:
         # (pre-division accumulator) form until a non-Add consumer, so
         # directly-summed rotations share one P-division.
         # EVA_TPU_NO_ROTSUM_FUSION restores the eager per-rotation form
-        # (the host planner reads the same variable).
-        self._rotsum_on = not os.environ.get("EVA_TPU_NO_ROTSUM_FUSION")
+        # (the host planner reads the same variable); sharded big vectors
+        # never defer.
+        self._rotsum_on = (self.k == 1 and
+                           not os.environ.get("EVA_TPU_NO_ROTSUM_FUSION"))
         # Device-upload cache: program constants (encode-cache Plaintexts)
         # and re-executed input Ciphertexts are uploaded once, not per
         # run(). Keyed by object id; values pin the host object so ids
@@ -319,6 +355,18 @@ class TorchProgram:
         self._upload_cache: "OrderedDict[int, tuple]" = OrderedDict()
         self._upload_cache_cap = 256
         self._consts: Dict[Tuple, torch.Tensor] = {}
+        # Program constants: the Plaintexts of input-free Encodes, which
+        # the host planner's encode cache hands to every request as the
+        # same object. A captured graph reads them in place.
+        free: Dict[int, bool] = {}
+        for t in order:
+            free[t.index] = t.op != Op.Input and all(
+                free[o.index] for o in t.operands)
+        self._const_terms = {t.index for t in order
+                             if t.op == Op.Encode and free[t.index]}
+        # One captured graph per input key (see _capture_key), the
+        # counterpart of JaxProgram._jit_cache.
+        self._captured: Dict[Tuple, _Captured] = {}
 
     def _const(self, key, arr: np.ndarray) -> torch.Tensor:
         """A static host table (key-switch constants, digit maps) on the
@@ -945,8 +993,11 @@ class TorchProgram:
         numpy backend makes the identical choice and results stay
         bit-identical."""
         ctx = self.ctx
-        if steps % (ctx.n // 2) == 0:
+        if steps % (self.k * (ctx.n // 2)) == 0:
             return list(polys)
+        if self.k > 1:
+            return self._rotate_sharded(polys, steps, level, dev, hoist,
+                                        src_key)
         g = ctx.galois_elt(steps)
         aperm = self._aperm(g)
         if hoist is not None and src_key is not None:
@@ -969,7 +1020,66 @@ class TorchProgram:
                 digits, level, self.dkeys.layout(self.keys.galois[g], level))
         return [dev.add(c0, d0), d1]
 
+    def _rotate_sharded(self, polys, steps: int, level: int,
+                        dev: DeviceLevelOps, hoist=None, src_key=None):
+        """Rotation of a sharded big-vector ciphertext (strided layout,
+        crypto/bigvec): roll the shard axis by c, then key-switch the
+        first k-c shards with Galois step `lo` and the rest with `hi` —
+        mask-free and exact, at most two keys per logical rotation.
+        Hoisted sources share one digit decomposition of the full shard
+        stack; the rolled digit windows feed both groups. The key
+        switches are structured (digits, MAC, then the P-division of
+        _ks_div2), as in the JAX package."""
+        ctx = self.ctx
+        k = self.k
+        c, lo, hi = rotation_plan(steps, k, ctx.n // 2)
+        ax = polys[0].dim() - 3  # shard axis of [..., k, n_sub, N] planes
+        p0, p1 = ((torch.roll(p, -c, dims=ax) if c else p)
+                  for p in polys[:2])
+        groups = [(0, k - c, lo)] + ([(k - c, k, hi)] if c else [])
+
+        digits_full = None
+        if hoist is not None and src_key is not None:
+            digits_full = hoist.get(src_key)
+            if digits_full is None:
+                digits_full = self._ks_digits(polys[1], level)
+                hoist[src_key] = digits_full
+
+        out0, out1 = [], []
+        for g_lo, g_hi, amt in groups:
+            s0 = p0.narrow(ax, g_lo, g_hi - g_lo)
+            s1 = p1.narrow(ax, g_lo, g_hi - g_lo)
+            if amt == 0:
+                out0.append(s0)
+                out1.append(s1)
+                continue
+            g = ctx.galois_elt(amt)
+            aperm = self._aperm(g)
+            ksk = self.keys.galois[g]
+            if digits_full is not None:
+                # Permute-after: MAC the shared digits against the
+                # inverse-permuted key, automorph only the two outputs.
+                dg = digits_full.shard_window(c, g_lo, g_hi)
+                d0, d1 = self._ks_apply(
+                    dg, level, self.dkeys.layout_rot(ksk, level, g))
+                out0.append(aperm(dev.add(s0, d0)))
+                out1.append(aperm(d1))
+                continue
+            d0, d1 = self._ks_apply(
+                self._ks_digits(aperm(s1), level, ksk.alpha), level,
+                self.dkeys.layout(ksk, level))
+            out0.append(dev.add(aperm(s0), d0))
+            out1.append(d1)
+        if len(out0) == 1:
+            return [out0[0], out1[0]]
+        return [torch.cat(out0, dim=ax), torch.cat(out1, dim=ax)]
+
     # -- run -----------------------------------------------------------------
+
+    def _captures(self) -> bool:
+        """Execute through captured CUDA graphs (a CUDA device, unless
+        the private switch _capture is off)."""
+        return self._capture and self.device.type == "cuda"
 
     def _inputs(self, host_values: Dict[int, object]):
         """Device inputs of one valuation (through the upload cache)."""
@@ -981,22 +1091,125 @@ class TorchProgram:
                 cipher_in[f"t{idx}"] = self._upload(
                     v, lambda ct: [_to_dev(c, device) for c in ct.polys])
             elif isinstance(v, Plaintext):
-                plain_in[f"t{idx}"] = self._upload(
-                    v, lambda pt: _to_dev(_plain_np(pt), device))
+                plain_in[f"t{idx}"] = self._upload_plain(v)
         return cipher_in, plain_in
+
+    def _upload_plain(self, pt: Plaintext) -> torch.Tensor:
+        return self._upload(pt, lambda p: _to_dev(_plain_np(p), self.device))
+
+    def _split(self, host_values_list, batched: bool):
+        """Valuations as host arrays: (cipher {key: [planes]}, plain
+        {key: planes}, consts {key: Plaintext}). Batched, every input is
+        stacked on a leading axis, except a Plaintext that is the same
+        object in every valuation, which serves them all unstacked.
+        consts holds the program constants (input-free Encodes, the same
+        object in every valuation): they are uploaded once and read in
+        place."""
+        first = host_values_list[0]
+        cipher, plain, consts = {}, {}, {}
+        for idx, v in first.items():
+            key = f"t{idx}"
+            if isinstance(v, Ciphertext):
+                cipher[key] = [
+                    np.stack([hv[idx].polys[k] for hv in host_values_list])
+                    if batched else v.polys[k] for k in range(v.size)]
+            elif isinstance(v, Plaintext):
+                if all(hv[idx] is v for hv in host_values_list):
+                    if idx in self._const_terms:
+                        consts[key] = v
+                    else:
+                        plain[key] = _plain_np(v)
+                else:
+                    plain[key] = np.stack(
+                        [_plain_np(hv[idx]) for hv in host_values_list])
+        return cipher, plain, consts
+
+    def _capture_key(self, cipher, plain, consts) -> Tuple:
+        """The captured graph's key, as JaxProgram._jitted keys its
+        cache: input names, plane counts and shapes (the batch size is
+        part of the shape); plus the identity of each constant's host
+        object, whose device copy the graph reads in place, and the key
+        switch that EVA_TPU_NO_FUSED_KS selects when `_traced` runs."""
+        return (
+            tuple(sorted((k, len(v), tuple(v[0].shape))
+                         for k, v in cipher.items())),
+            tuple(sorted((k, tuple(v.shape)) for k, v in plain.items())),
+            tuple(sorted((k, id(pt)) for k, pt in consts.items())),
+            self._fused_ks_ok())
+
+    def _replay(self, cipher, plain, consts):
+        """Run valuations (see _split) through their captured graph,
+        capturing it on the key's first call: the inputs are copied into
+        the graph's static tensors, the graph replayed, and the static
+        outputs copied into pinned host memory, all enqueued on the
+        current stream. Returns (host outputs, CUDA event of their
+        end). A capture or replay that fails raises."""
+        key = self._capture_key(cipher, plain, consts)
+        entry = self._captured.get(key)
+        if entry is None:
+            entry = self._captured[key] = self._capture_graph(
+                cipher, plain, consts)
+        else:
+            entry.fill(cipher, plain)
+        entry.replay()
+        return _copy_out(entry.out)
+
+    def _capture_graph(self, cipher, plain, consts) -> "_Captured":
+        """Capture `_traced` for one input key: static input tensors,
+        filled with this request's inputs; one eager warm-up on a side
+        stream, which builds every lazy table, constant and kernel
+        library and runs every first-use nvcc build and occupancy query,
+        so that the capture uploads nothing; then the capture."""
+        device = self.device
+        with torch.cuda.device(device):
+            entry = _Captured(
+                {k: [torch.empty(a.shape, dtype=torch.int64, device=device)
+                     for a in planes] for k, planes in cipher.items()},
+                {k: torch.empty(a.shape, dtype=torch.int64, device=device)
+                 for k, a in plain.items()},
+                {k: (pt, self._upload_plain(pt))
+                 for k, pt in consts.items()})
+            entry.fill(cipher, plain)
+            plain_in = {**entry.plain,
+                        **{k: dev for k, (_, dev) in entry.consts.items()}}
+            stream = torch.cuda.current_stream(device)
+            side = torch.cuda.Stream(device)
+            side.wait_stream(stream)
+            with torch.cuda.stream(side):
+                self._traced(entry.cipher, plain_in)
+            stream.wait_stream(side)
+            # What torch.cuda.graph does on entry, done first so that the
+            # reserved bytes grow by the graph's private pool alone.
+            gc.collect()
+            torch.cuda.synchronize(device)
+            torch.cuda.empty_cache()
+            saved = _take_counts()
+            reserved = torch.cuda.memory_reserved(device)
+            t0 = time.perf_counter()
+            entry.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(entry.graph):
+                entry.out = self._traced(entry.cipher, plain_in)
+            entry.capture_s = time.perf_counter() - t0
+            entry.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+            # A capture records launches and runs none: what it counted
+            # is what each replay launches (see _Captured.replay).
+            entry.launches = _take_counts(saved)
+        return entry
 
     def _result(self, out, b=None) -> Dict[str, object]:
         """Host Ciphertext/Plaintext outputs from host (CPU) tensors;
-        with b, batch element b of [B, n_sub, N] planes (a plane without
-        the batch axis, computed from constants alone, serves every
-        element)."""
+        with b, batch element b of [B, n_sub, N] planes ([B, k, n_sub, N]
+        for sharded big vectors; a plane without the batch axis, computed
+        from constants alone, serves every element)."""
+        plane_dims = 2 if self.k == 1 else 3
         result = {}
         for name, t in self.program.outputs.items():
             if self.types[t] == Type.Raw:
                 continue
             planes = [c.numpy().astype(np.uint64) for c in out[name]]
             if b is not None:
-                planes = [pl[b] if pl.ndim == 3 else pl for pl in planes]
+                planes = [pl[b] if pl.ndim > plane_dims else pl
+                          for pl in planes]
             p = self.plan[t.index]
             if self.types[t] == Type.Plain:
                 result[name] = Plaintext(planes[0], p.level, p.scale)
@@ -1008,6 +1221,10 @@ class TorchProgram:
         """host_values: term index -> Ciphertext (inputs) or Plaintext
         (inputs + encodes, already host-encoded). Returns output name ->
         Ciphertext (numpy, uint64)."""
+        if self._captures():
+            host, done = self._replay(*self._split([host_values], False))
+            done.synchronize()
+            return self._result(host)
         out = self._traced(*self._inputs(host_values))
         return self._result({name: [c.cpu() for c in planes]
                              for name, planes in out.items()})
@@ -1020,32 +1237,25 @@ class TorchProgram:
         so each kernel launch covers the whole batch (the key-switch
         kernels' batch grid axis). Program constants (cached encodes:
         the same host object in every valuation) are uploaded once and
-        broadcast, not stacked B times. Port of
+        broadcast, not stacked B times. On a CUDA device each batch size
+        has its own captured graph. Port of
         executor_jax.JaxProgram.run_batched without the mesh branches."""
         batch = len(host_values_list)
         if batch == 0:
             return []
-        device = self.device
-        cipher_in = {}
-        plain_in = {}
-        for idx, v in host_values_list[0].items():
-            key = f"t{idx}"
-            if isinstance(v, Ciphertext):
-                cipher_in[key] = [
-                    _to_dev(np.stack([hv[idx].polys[k]
-                                      for hv in host_values_list]), device)
-                    for k in range(v.size)]
-            elif isinstance(v, Plaintext):
-                if all(hv[idx] is v for hv in host_values_list):
-                    plain_in[key] = self._upload(
-                        v, lambda pt: _to_dev(_plain_np(pt), device))
-                else:
-                    plain_in[key] = _to_dev(np.stack(
-                        [_plain_np(hv[idx]) for hv in host_values_list]),
-                        device)
-        out = self._traced(cipher_in, plain_in)
-        host = {name: [c.cpu() for c in planes]
-                for name, planes in out.items()}
+        cipher, plain, consts = self._split(host_values_list, True)
+        if self._captures():
+            host, done = self._replay(cipher, plain, consts)
+            done.synchronize()
+        else:
+            device = self.device
+            out = self._traced(
+                {k: [_to_dev(a, device) for a in planes]
+                 for k, planes in cipher.items()},
+                {**{k: _to_dev(a, device) for k, a in plain.items()},
+                 **{k: self._upload_plain(pt) for k, pt in consts.items()}})
+            host = {name: [c.cpu() for c in planes]
+                    for name, planes in out.items()}
         return [self._result(host, b) for b in range(batch)]
 
     def run_pipelined(self, host_values_iter, depth: int = 2):
@@ -1054,32 +1264,24 @@ class TorchProgram:
         collected.
 
         PyTorch launches are asynchronous on a CUDA device: each
-        execution's kernels are enqueued, then its outputs are copied
-        into pinned host memory with non-blocking copies on the same
-        stream, and a CUDA event marks their end. While the host builds
-        and launches the next execution, the device runs the previous
-        one; collecting waits on that execution's event only. `depth`
-        bounds the executions in flight (device memory: one set of
-        outputs each). Port of executor_jax.JaxProgram.run_pipelined."""
+        execution's inputs are copied in and its graph replayed, then its
+        outputs are copied into pinned host memory with non-blocking
+        copies on the same stream, and a CUDA event marks their end.
+        Stream order keeps execution k's output copy ahead of execution
+        k+1's input copy and replay. While the host prepares the next
+        execution, the device runs the previous one; collecting waits on
+        that execution's event only. `depth` bounds the executions in
+        flight. Port of executor_jax.JaxProgram.run_pipelined."""
         import collections
 
         pending = collections.deque()
         on_cuda = self.device.type == "cuda"
 
         def dispatch(host_values):
+            if self._captures():
+                return self._replay(*self._split([host_values], False))
             out = self._traced(*self._inputs(host_values))
-            if not on_cuda:
-                return out, None
-            host = {}
-            for name, planes in out.items():
-                host[name] = []
-                for c in planes:
-                    h = torch.empty(c.shape, dtype=c.dtype, pin_memory=True)
-                    h.copy_(c, non_blocking=True)
-                    host[name].append(h)
-            done = torch.cuda.Event()
-            done.record()
-            return host, done
+            return _copy_out(out) if on_cuda else (out, None)
 
         def collect(item):
             host, done = item
@@ -1093,3 +1295,114 @@ class TorchProgram:
                 yield collect(pending.popleft())
         while pending:
             yield collect(pending.popleft())
+
+
+def _copy_out(out):
+    """Enqueue non-blocking copies of device outputs {name: planes} into
+    pinned host memory on the current stream; returns (host outputs,
+    CUDA event recorded after the copies)."""
+    host = {name: [torch.empty(c.shape, dtype=c.dtype,
+                               pin_memory=True).copy_(c, non_blocking=True)
+                   for c in planes] for name, planes in out.items()}
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+def _counters():
+    """The kernel wrappers' launch counters, by name."""
+    return {"ntt_launches": ntt_cuda.LAUNCHES,
+            "ntt_fwd_rows": ntt_cuda.ROWS["ntt_fwd"],
+            "ntt_inv_rows": ntt_cuda.ROWS["ntt_inv"],
+            "ks_launches": ks_cuda.LAUNCHES,
+            "ks_max_batch": ks_cuda.MAX_BATCH}
+
+
+def _take_counts(restore=None) -> Dict[str, dict]:
+    """The counters' values, after which they read 0, or, given an
+    earlier result, what they counted since it, after which they read it
+    again."""
+    taken = {}
+    for name, c in _counters().items():
+        taken[name] = {k: v for k, v in c.items() if v}
+        if isinstance(c, Counter):
+            c.clear()
+        else:
+            for k in c:
+                c[k] = 0
+        if restore is not None:
+            c.update(restore[name])
+    return taken
+
+
+class _Captured:
+    """A program captured in a CUDA graph for one input key (the
+    counterpart of one compiled entry of JaxProgram._jit_cache).
+
+    cipher / plain: the static input tensors the graph reads, rewritten
+    before each replay from pinned staging buffers (_stages: sets of
+    them, each with the CUDA event of its last copies, reused once that
+    has passed); consts: {key: (host Plaintext, device tensor)}
+    for the program constants the graph reads in place, held here so
+    that the upload cache cannot free a tensor the graph still reads
+    (the capture key holds the host objects' ids); out: the static
+    output tensors each replay rewrites; launches: the kernel launches of
+    one replay by counter (see _counters), counted while capturing;
+    capture_s and pool_bytes: the capture's seconds and the device
+    memory its private pool reserved. The level tables, key layouts and
+    program tables the graph reads are held by their caches, which never
+    drop an entry."""
+
+    def __init__(self, cipher, plain, consts):
+        self.cipher = cipher
+        self.plain = plain
+        self.consts = consts
+        self._static = [t for planes in cipher.values() for t in planes]
+        self._static += list(plain.values())
+        self._stages: List[tuple] = []
+        self.graph = None
+        self.out = None
+        self.launches: Dict[str, dict] = {}
+        self.capture_s = 0.0
+        self.pool_bytes = 0
+
+    def fill(self, cipher, plain) -> None:
+        """Copy one request's host inputs (TorchProgram._split) into the
+        static input tensors, through a set of pinned staging buffers
+        that no earlier copy still reads, without blocking the host;
+        raises on any other name or shape. (PyTorch's pinned-memory
+        cache is no help here: it recycles a block only once every newer
+        block's copy has passed, so a pipeline pins new memory on every
+        request.)"""
+        if (set(cipher) != set(self.cipher) or set(plain) != set(self.plain)
+                or any(len(cipher[k]) != len(v)
+                       for k, v in self.cipher.items())):
+            raise ValueError("captured graph: the inputs differ from the "
+                             "captured ones")
+        arrays = [a for k in self.cipher for a in cipher[k]]
+        arrays += [plain[k] for k in self.plain]
+        for dst, arr in zip(self._static, arrays):
+            if tuple(arr.shape) != tuple(dst.shape):
+                raise ValueError(
+                    f"captured graph: input shape {tuple(arr.shape)} "
+                    f"differs from the captured {tuple(dst.shape)}")
+        stage = next((st for st in self._stages if st[0].query()), None)
+        if stage is None:
+            stage = (torch.cuda.Event(),
+                     [torch.empty(t.shape, dtype=torch.int64,
+                                  pin_memory=True) for t in self._static])
+            self._stages.append(stage)
+        done, bufs = stage
+        for dst, arr, buf in zip(self._static, arrays, bufs):
+            np.copyto(buf.numpy(), arr, casting="unsafe")
+            dst.copy_(buf, non_blocking=True)
+        done.record()
+
+    def replay(self) -> None:
+        """Launch the graph on the current stream, and add its kernel
+        launches to the wrappers' counters."""
+        self.graph.replay()
+        for name, c in _counters().items():
+            for k, v in self.launches[name].items():
+                c[k] = (max(c[k], v) if name == "ks_max_batch"
+                        else c[k] + v)

@@ -5,8 +5,10 @@ SEALValuation/generateKeys; reference eva/seal/seal.h:21-92).
 `generate_keys(params)` returns (EVAPublic, EVASecret). EVAPublic encrypts
 inputs and executes compiled programs; EVASecret decrypts outputs. The
 `backend` argument selects the execution engine: "torch" (the default:
-the PyTorch compute path on `device`, by default the CUDA device) or
-"numpy" (exact host reference)."""
+the PyTorch compute path on `device`, by default the CUDA device, where
+each program runs as one captured CUDA graph per input shape) or
+"numpy" (exact host reference). Programs with vec_size > N/2 run on
+both, sharded across k = vec_size / (N/2) ciphertexts (crypto/bigvec)."""
 
 from __future__ import annotations
 
@@ -145,8 +147,9 @@ class EVAPublic:
         device pass (torch backend): cipher inputs are stacked on a
         leading batch axis, so each kernel launch covers the batch.
         Returns one valuation per input, each bit-identical to its own
-        `execute`. `mesh` (multi-device) is not ported and raises
-        NotImplementedError; so does a program with vec_size > N/2."""
+        `execute`. On the CUDA device each batch size has its own
+        captured graph. `mesh` (multi-device) is not ported and raises
+        NotImplementedError."""
         for v in inputs_list:
             _check_params(self.params, v, "EVAPublic.execute_batch")
         results = self._executor_for(program).run_batch(inputs_list, mesh=mesh)

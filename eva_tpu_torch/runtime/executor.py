@@ -81,6 +81,7 @@ class Executor:
         self._torch_program = None
         self._encode_cache: Dict[int, object] = {}
         self._input_free: Dict[int, bool] = {}
+        self._raw_needed = (None, set())  # (encode-cache size, terms)
         self._hoisted_sources = rotation_hoist_sources(self.order)
         import os
         self._rotsum_on = (program.vec_size <= ctx.n // 2 and
@@ -367,7 +368,8 @@ class Executor:
     def run_batch(self, inputs_list, mesh=None):
         """Execute over a batch of valuations (torch backend only):
         host-phase each element, then one device pass over the stacked
-        batch. `mesh` (multi-device batch sharding) is not ported."""
+        batch (one replay of the batch size's captured graph on the CUDA
+        device). `mesh` (multi-device batch sharding) is not ported."""
         self._require_torch("batched execution")
         if mesh is not None:
             raise NotImplementedError(
@@ -405,6 +407,29 @@ class Executor:
                     outputs[name] = raw_vals[t.operands[0].index]
             yield outputs
 
+    def _raw_terms_needed(self) -> set:
+        """Raw and Constant terms whose values `_host_phase` computes: the
+        operand cones of the Raw outputs and of the Encodes that the
+        encode cache does not hold. Once every constant-only encode is
+        cached, the constants behind them are not expanded again (each
+        expansion builds a vec_size list on the host)."""
+        n_cached, needed = self._raw_needed
+        if n_cached != len(self._encode_cache):
+            stack = [t for t in self.program.outputs.values()
+                     if self.types[t] == Type.Raw]
+            stack += [t.operands[0] for t in self.order
+                      if t.op == Op.Encode
+                      and t.index not in self._encode_cache]
+            needed = set()
+            while stack:
+                t = stack.pop()
+                if t.index not in needed and (self.types[t] == Type.Raw
+                                              or t.op == Op.Constant):
+                    needed.add(t.index)
+                    stack.extend(t.operands)
+            self._raw_needed = (len(self._encode_cache), needed)
+        return needed
+
     def _host_phase(self, inputs: Dict):
         """Compute Raw subgraphs and plaintext encodes on host; returns
         (host_values for the device program, raw term values)."""
@@ -412,6 +437,7 @@ class Executor:
         vec_size = self.program.vec_size
         host_values: Dict[int, object] = {}
         raw_vals: Dict[int, object] = {}
+        needed = self._raw_terms_needed()
 
         for name, term in self.program.inputs.items():
             if name not in inputs:
@@ -430,6 +456,9 @@ class Executor:
         for term in self.order:
             if term.op == Op.Input:
                 continue
+            if ((self.types[term] == Type.Raw or term.op == Op.Constant)
+                    and term.index not in needed):
+                continue  # feeds only cached encodes
             if self.types[term] == Type.Raw:
                 raw_vals[term.index] = self._raw_op(term, raw_vals, vec_size)
             elif term.op == Op.Constant:

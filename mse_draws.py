@@ -6,6 +6,7 @@ times to set chip_smoke.py's limit. It runs the port's host numpy backend,
 whose output ciphertexts chip_smoke.py holds bit-identical to the card's.
 
     python3 mse_draws.py harris 48
+    python3 mse_draws.py sobel128 8
 """
 
 import os
@@ -25,7 +26,9 @@ from eva_tpu_torch.runtime import generate_keys  # noqa: E402
 
 def main(name: str, draws: int) -> None:
     build, seed = {"sobel": (chip_smoke.build_sobel, 11),
-                   "harris": (chip_smoke.build_harris, 13)}[name]
+                   "harris": (chip_smoke.build_harris, 13),
+                   "sobel128": (lambda: chip_smoke.build_sobel(128, 128),
+                                19)}[name]
     prog = build()
     compiled, params, sig = CKKSCompiler(
         {"warn_vec_size": "false"}).compile(prog)

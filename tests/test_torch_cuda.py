@@ -198,3 +198,99 @@ def test_cuda_key_switch_wrappers_reject_what_the_kernels_do_not_take(cuda):
                             True)
     with pytest.raises(ValueError, match="n_key"):
         ks_cuda.ks_epilogue(acc0, acc1, ext, 0, True)
+
+
+# -- whole programs through captured CUDA graphs ------------------------------
+
+
+@pytest.fixture(scope="module", params=[64, 4096], ids=["k1", "k2"])
+def card_program(request):
+    """A small Sobel-shaped program at N = 4096 (test_torch_capture's: one
+    shard at vec_size 64, two at 4096), keys generated for the card, four
+    encrypted valuations and their numpy backend outputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    from eva_tpu_torch.ckks import CKKSCompiler
+    from eva_tpu_torch.runtime import EVAPublic, generate_keys
+    from test_torch_capture import _mini_sobel
+
+    vec = request.param
+    compiled, params, sig = CKKSCompiler(
+        {"warn_vec_size": "false"}).compile(_mini_sobel(vec))
+    pub, _ = generate_keys(params)
+    rng = np.random.default_rng(vec + 1)
+    encs = [pub.encrypt({"image": rng.uniform(0, 1, vec).tolist()}, sig)
+            for _ in range(4)]
+    host = EVAPublic(pub.ctx, pub._keys, params, backend="numpy")
+    return pub, compiled, encs, [host.execute(compiled, e) for e in encs]
+
+
+def _same(want, got):
+    assert set(want) == set(got)
+    for k in want:
+        assert len(want[k].polys) == len(got[k].polys)
+        for a, b in zip(want[k].polys, got[k].polys):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_cuda_captured_execute_equals_eager(card_program, monkeypatch):
+    """One graph per key, replayed; its output bit-identical to eager
+    execution and to the numpy backend; each replay adds the launches
+    counted at capture, K1/K2/K4/K5 among them."""
+    from eva_tpu_torch.backend.executor_torch import TorchProgram
+
+    pub, compiled, encs, refs = card_program
+    ex = pub._executor_for(compiled)
+    tp = ex._get_torch_program()
+    captured = pub.execute(compiled, encs[0])
+    entry = tp._captured[tp._capture_key(
+        *tp._split([ex._host_phase(encs[0])[0]], False))]
+    n_graphs = len(tp._captured)
+    assert entry.capture_s > 0 and entry.pool_bytes > 0
+    assert min(entry.launches["ntt_launches"].values()) > 0
+    assert min(entry.launches["ks_launches"].values()) > 0
+    before = dict(ntt_cuda.LAUNCHES)
+    again = pub.execute(compiled, encs[0])
+    assert {k: ntt_cuda.LAUNCHES[k] - before[k] for k in before} == \
+        entry.launches["ntt_launches"]
+    monkeypatch.setattr(TorchProgram, "_capture", False)
+    eager = pub.execute(compiled, encs[0])
+    _same(refs[0], captured)
+    _same(eager, captured)
+    _same(captured, again)
+    assert len(tp._captured) == n_graphs
+
+
+def test_cuda_replay_takes_new_inputs(card_program):
+    pub, compiled, encs, refs = card_program
+    for enc, ref in zip(encs, refs):
+        _same(ref, pub.execute(compiled, enc))
+
+
+def test_cuda_pipelined_and_batched_equal_execute(card_program):
+    """execute_pipelined over 4 requests and execute_batch of 4 (its own
+    graph) against 4 executes."""
+    pub, compiled, encs, refs = card_program
+    tp = pub._executor_for(compiled)._get_torch_program()
+    seq = [pub.execute(compiled, e) for e in encs]
+    piped = list(pub.execute_pipelined(compiled, iter(encs), depth=2))
+    batched = pub.execute_batch(compiled, encs)
+    assert len(piped) == len(batched) == 4
+    for s, p, b, r in zip(seq, piped, batched, refs):
+        _same(r, s)
+        _same(s, p)
+        _same(s, b)
+    assert len(tp._captured) >= 2  # batch 1 and batch 4
+
+
+def test_cuda_captured_graph_refuses_a_wrong_input_shape(card_program):
+    pub, compiled, encs, _ = card_program
+    ex = pub._executor_for(compiled)
+    tp = ex._get_torch_program()
+    pub.execute(compiled, encs[0])
+    cipher, plain, consts = tp._split([ex._host_phase(encs[0])[0]], False)
+    entry = tp._captured[tp._capture_key(cipher, plain, consts)]
+    name, planes = next(iter(cipher.items()))
+    with pytest.raises(ValueError, match="input shape"):
+        entry.fill({**cipher, name: [p[..., :-1, :] for p in planes]},
+                   plain)

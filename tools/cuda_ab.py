@@ -28,7 +28,11 @@ OUT/ab_<label>_<n>.json with --out:
        their plain versions at every KS_SHAPES shape;
   paths (--paths): Sobel and Harris 90x90 wall ms of N warm executes,
        profiled device busy ms, NTT ms and key-switch ms of one execute,
-       and the device op count.
+       and the device op count, as the tree executes by default
+       ("captured": true where it replays a captured CUDA graph); for a
+       tree that captures, the same again with its private switch
+       TorchProgram._capture off under "eager", so that a capturing and
+       an eager tree compare like with like.
 Imports nothing of JAX and nothing of the JAX package eva_tpu."""
 
 from __future__ import annotations
@@ -93,9 +97,20 @@ def ntt_times(smoke, device, sweep: bool):
     return out
 
 
+def execute_times(smoke, name, pub, compiled, enc, reps: int):
+    pub.execute(compiled, enc)
+    times = smoke.execute_ms(pub, compiled, enc, reps)
+    prof = smoke.profile_execute(name, pub, compiled, enc, top=0)
+    return {"execute_ms_median": statistics.median(times),
+            "execute_ms_all": times, **(prof or {})}
+
+
 def path_times(smoke, reps: int):
+    from eva_tpu_torch.backend.executor_torch import TorchProgram
     from eva_tpu_torch.ckks import CKKSCompiler
     from eva_tpu_torch.runtime import generate_keys
+
+    captures = hasattr(TorchProgram, "_capture")
 
     out = {}
     for name, build, seed in (("sobel", smoke.build_sobel, 11),
@@ -107,11 +122,15 @@ def path_times(smoke, reps: int):
         pub, _ = generate_keys(params)
         enc = pub.encrypt(
             {"image": rng.uniform(0, 1, prog.vec_size).tolist()}, sig)
-        pub.execute(compiled, enc)
-        times = smoke.execute_ms(pub, compiled, enc, reps)
-        prof = smoke.profile_execute(name, pub, compiled, enc, top=0)
-        out[name] = {"execute_ms_median": statistics.median(times),
-                     "execute_ms_all": times, **(prof or {})}
+        out[name] = {"captured": captures,
+                     **execute_times(smoke, name, pub, compiled, enc, reps)}
+        if captures:
+            TorchProgram._capture = False
+            try:
+                out[name]["eager"] = execute_times(smoke, name, pub,
+                                                   compiled, enc, reps)
+            finally:
+                TorchProgram._capture = True
         print(f"path {name} " + json.dumps(out[name]), flush=True)
     return out
 
