@@ -14,7 +14,9 @@ Phases (any failure exits non-zero and prints no result line):
      torch.equal (exact modular arithmetic: the tolerance is zero).
      NTT: at NTT_SHAPES, the main path's shapes at N = 16384 ([11],
      [13], [2] and [4, 13] rows: Sobel's level 0 at batch 1, data plus
-     key primes, a deep level, a batch of 4) and N = 1024, 2048, 32768,
+     key primes, a deep level, a batch of 4; [6, 13] and [4, 10]:
+     keygen's one launch per key at Sobel's and Harris's contexts) and
+     N = 1024, 2048, 32768,
      each at the cluster size the kernel library picks and at every size
      it can be forced to (1 to 8 blocks a row); the NTT kernels'
      registers, spill bytes and clusters held are printed first. Fused key
@@ -27,8 +29,14 @@ Phases (any failure exits non-zero and prints no result line):
      The key-switch kernels' registers, spill bytes and the clusters the
      card holds at once are printed first. Device times by CUDA events
      around CUDA-graph replays; eager per-call times beside them.
-  3. Main path: Sobel and Harris 90x90 (N=16384) through compile ->
-     generate_keys (the card) -> encrypt -> execute -> decrypt, on the
+  3. Keygen: the key-switching-key arithmetic (DeviceKeygen, K1 at
+     [groups, n_all, N]) against the host loop on seeded randomness at
+     Sobel's and Harris's contexts, byte-identical, ms per key each way;
+     generate_keys seconds with the host loop and on the card, each
+     split into that arithmetic (_ksk_compute) and the rest (sampling).
+     Main path: Sobel and Harris 90x90 (N=16384) through compile ->
+     generate_keys (the card: counted apart, one K1 launch per key) ->
+     encrypt -> execute -> decrypt, on the
      fused key switch. `execute` runs each program as one captured CUDA
      graph: its first call warms up eagerly, captures and replays, every
      later call replays. The output ciphertexts must be bit-identical to
@@ -52,8 +60,12 @@ Phases (any failure exits non-zero and prints no result line):
      under the same checks and its own MSE limit. Then, all through
      graphs, execute_batch of 4 Sobel requests and execute_pipelined
      over 8, each output bit-identical to its own sequential execute,
-     with the key-switch kernels launched at batch 4.
-  4. One JSON line of kernel numbers, then the device line last.
+     with the key-switch kernels launched at batch 4. Then
+     eva_tpu_torch.profiling: the measured HBM roofline, profile()'s
+     table and calibration, and estimate_program for each program beside
+     its captured execute and device busy time.
+  4. One JSON line of kernel numbers (keygen's K1 launches under
+     `launches_keygen`), then the device line last.
 
 Imports nothing of JAX and nothing of the JAX package eva_tpu."""
 
@@ -226,14 +238,19 @@ def ntt_bound_ms(rows: int, n: int, n_sub: int):
 
 # NTT shapes held to the plain versions, at the cluster size the kernel
 # library picks and at every size it can be forced to: (label, N, leading
-# shape, prime count). The first four are the main path's at N = 16384:
+# shape, prime count). The first six are the main path's at N = 16384:
 # Sobel's level 0 at batch 1 (11 data primes), data plus key primes, a
-# deep level, and a batch of 4 over the extended basis.
+# deep level, a batch of 4 over the extended basis, and keygen's one
+# launch per key-switching key over every digit group and the full basis
+# (DeviceKeygen): Sobel's 6 groups x 13 primes, Harris's 4 x 10 (on the
+# first 10 of Sobel's primes: the shape is Harris's).
 NTT_SHAPES = (
     ("sobel_l0", 16384, (), 11),
     ("data_key", 16384, (), 13),
     ("deep", 16384, (), 2),
     ("batch4", 16384, (4,), 13),
+    ("keygen_sobel", 16384, (6,), 13),
+    ("keygen_harris", 16384, (4,), 10),
     ("n1024", 1024, (4,), 13),
     ("n2048", 2048, (4,), 13),
     ("n32768", 32768, (2,), 13),
@@ -510,6 +527,17 @@ def check_counts(name, counts, fused: bool):
         raise AssertionError(f"{name}: counts {counts}")
 
 
+def check_keygen_counts(name, counts, n_keys: int):
+    """Keygen on the card: one K1 launch per key-switching key, no other
+    kernel and no plain version."""
+    want = {"ntt_fwd": n_keys, "ntt_inv": 0}
+    plain = {**counts["plain_calls"], **counts["ks_plain_calls"]}
+    if (counts["ntt_launches"] != want or any(plain.values())
+            or any(counts["ks_launches"].values())):
+        raise AssertionError(f"{name} keygen: counts {counts}, want "
+                             f"{want} NTT launches")
+
+
 def check_equal(name, want, got):
     """Output ciphertexts bit-identical, output by output."""
     for k in want:
@@ -533,25 +561,30 @@ def execute_ms(pub, compiled, enc, reps: int):
 
 def run_program(name, build, seed, device, reps=5):
     """Phase 3 for one program: the user's path on `device` (None: the
-    CUDA device), with the kernel counts reset just before it and read
-    just after; then the checks against the port's numpy backend and the
-    plaintext reference, and the warm execute times."""
+    CUDA device). Key generation runs with the counts reset just before
+    it and read just after (one K1 launch per key-switching key); the
+    rest of the path runs with the counts reset after keygen and read
+    just after execute. Then the checks against the port's numpy backend
+    and the plaintext reference, and the warm execute times."""
     from eva_tpu_torch import evaluate
     from eva_tpu_torch.ckks import CKKSCompiler
     from eva_tpu_torch.metric import valuation_mse
     from eva_tpu_torch.runtime import EVAPublic, generate_keys
 
     rng = np.random.default_rng(seed)
-    reset_counts()
     t0 = time.perf_counter()
     prog = build()
     compiled, params, sig = CKKSCompiler(
         {"warn_vec_size": "false"}).compile(prog)
     t_compile = time.perf_counter() - t0
     inputs = {"image": rng.uniform(0, 1, prog.vec_size).tolist()}
+    reset_counts()
     t0 = time.perf_counter()
     pub, sec = generate_keys(params, device=device)
     t_keygen = time.perf_counter() - t0
+    keygen = read_counts()
+    check_keygen_counts(name, keygen, 1 + len(pub._keys.galois))
+    reset_counts()
     enc = pub.encrypt(inputs, sig)
     t0 = time.perf_counter()
     out = pub.execute(compiled, enc)
@@ -574,11 +607,160 @@ def run_program(name, build, seed, device, reps=5):
         "rotations": len(params.rotations),
         "alpha": pub._keys.ks_alpha, "key_primes": len(pub.ctx.key_primes),
         **counts,
+        "keygen_launches": keygen,
         "compile_s": t_compile, "keygen_s": t_keygen,
         "first_execute_s": t_first, "mse": mse, "ref_mean_square": ref_ms,
         "execute_ms_median": statistics.median(times),
         "execute_ms_all": times, "ntt_rows_per_execute": rows,
     }, (compiled, pub, enc, sig, ref_out)
+
+
+def ksk_inputs(ctx, seed: int):
+    """Seeded inputs of one relinearization key's `_ksk_compute` at `ctx`,
+    drawn as crypto/keys._make_kswitch_key draws them (a ternary secret,
+    its square as the target, one uniform a, one error and the factor
+    P * g_j of every digit group), but from a numpy generator seeded
+    with `seed`."""
+    from eva_tpu_torch.crypto import keys as K
+
+    rng = np.random.default_rng(seed)
+    s = K.SecretKey(ctx, rng.integers(-1, 2, ctx.n, dtype=np.int64))
+    basis = ctx.all_primes
+    target = (s.s * s.s) % ctx.qvec(basis)
+    groups = ctx.ks_groups(K.default_ks_alpha(ctx))
+    q_all = math.prod(ctx.data_primes)
+    facs = np.empty((len(groups), len(basis)), dtype=np.uint64)
+    for j, group in enumerate(groups):
+        q_j = math.prod(ctx.data_primes[t] for t in group)
+        qhat = q_all // q_j
+        factor = ctx.key_product * qhat * pow(qhat % q_j, -1, q_j)
+        facs[j] = [factor % q for q in basis]
+    As = [K.expand_uniform(ctx, basis, rng.bytes(32)) for _ in groups]
+    Es = [np.rint(rng.normal(0.0, K.ERROR_STDDEV, ctx.n)).astype(np.int64)
+          for _ in groups]
+    return s.s, target, As, Es, facs
+
+
+def timed_keygen(params, **kw):
+    """(seconds of generate_keys(params, **kw), seconds of it inside
+    crypto/keys._ksk_compute, the arithmetic an engine takes; the rest
+    is sampling, the public key and the automorphisms of s)."""
+    from eva_tpu_torch.crypto import keys as K
+    from eva_tpu_torch.runtime import generate_keys
+
+    inner, spent = K._ksk_compute, []
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        out = inner(*args)
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    K._ksk_compute = timed
+    try:
+        t0 = time.perf_counter()
+        generate_keys(params, **kw)
+        total = time.perf_counter() - t0
+    finally:
+        K._ksk_compute = inner
+    return total, sum(spent), len(spent)
+
+
+def keygen_phase(device, reps=3):
+    """Phase 3a: key-switching-key arithmetic on the card (DeviceKeygen,
+    one K1 launch at [groups, n_all, N]) against the host loop on seeded
+    randomness at Sobel's and Harris's contexts: byte-identical, ms per
+    key each way; then generate_keys seconds with the host loop
+    (backend "numpy") and on the card, each split into _ksk_compute and
+    the rest."""
+    from eva_tpu_torch.backend.keygen import DeviceKeygen
+    from eva_tpu_torch.ckks import CKKSCompiler
+    from eva_tpu_torch.crypto import keys as K
+    from eva_tpu_torch.crypto.context import get_context
+
+    out = {}
+    for name, build, seed in (("sobel", build_sobel, 23),
+                              ("harris", build_harris, 29)):
+        _, params, _ = CKKSCompiler({"warn_vec_size": "false"}).compile(
+            build())
+        ctx = get_context(tuple(params.prime_bits), tuple(params.rotations),
+                          params.poly_modulus_degree,
+                          getattr(params, "key_terms", 1))
+        args = ksk_inputs(ctx, SEED + seed)
+        engine = DeviceKeygen(ctx, device)
+        t0 = time.perf_counter()
+        want = K._ksk_compute(ctx, *args, None)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        reset_counts()
+        t0 = time.perf_counter()
+        got = K._ksk_compute(ctx, *args, engine)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        counts, rows = read_counts(), read_rows()
+        for a, b in zip(want[0] + want[1], got[0] + got[1]):
+            if not (a.dtype == b.dtype and np.array_equal(a, b)):
+                raise AssertionError(f"{name}: DeviceKeygen differs from "
+                                     f"the host loop")
+        check_keygen_counts(f"{name} ksk_compute", counts, 1)
+        device_ms = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            K._ksk_compute(ctx, *args, engine)
+            device_ms.append((time.perf_counter() - t0) * 1e3)
+        host_s, host_ksk_s, n_keys = timed_keygen(params, backend="numpy")
+        dev_s, dev_ksk_s, _ = timed_keygen(params, device=device)
+        out[name] = {
+            "N": ctx.n, "n_all": len(ctx.all_primes),
+            "groups": len(args[2]), "keys": n_keys,
+            "ksk_equal": True, "ntt_rows_per_launch": rows["ntt_fwd"],
+            "ksk_ms_per_key": {"host": host_ms,
+                               "device_median": statistics.median(device_ms),
+                               "device_all": device_ms,
+                               "device_first": first_ms},
+            "generate_keys_s": {
+                "host": host_s, "host_ksk": host_ksk_s,
+                "host_rest": host_s - host_ksk_s,
+                "device": dev_s, "device_ksk": dev_ksk_s,
+                "device_rest": dev_s - dev_ksk_s}}
+        print(f"keygen {name} " + json.dumps(out[name]), flush=True)
+    return out
+
+
+def profiling_phase(device, compiled, paths):
+    """Phase 3b: eva_tpu_torch.profiling on the card: the HBM roofline,
+    profile()'s table at N = 16384 (6 data entries), the calibration it
+    gives, and estimate_program for each program (with its committed
+    defaults and with this run's calibration) beside the program's
+    captured execute and device busy time from phase 3."""
+    from eva_tpu_torch import profiling
+
+    t0 = time.perf_counter()
+    results, hbm, n_sub = profiling.profile(16384, 6, device)
+    print("profiling roofline " + json.dumps(
+        {"hbm_bytes_per_s": hbm, "nominal_bytes_per_s": HBM_BYTES_PER_S,
+         "share_of_nominal": hbm / HBM_BYTES_PER_S}), flush=True)
+    print("profiling table " + json.dumps(
+        [{"case": name, "us_per_ct_op": us, "bytes_per_s": achieved,
+          "roofline_share": frac, "rows_per_ct_op": n_sub}
+         for name, us, achieved, frac in results]), flush=True)
+    calib = profiling.calibration(results, hbm, n_sub)
+    print("profiling calibration " + json.dumps(calib), flush=True)
+    out = {}
+    for name, (prog, params) in compiled.items():
+        totals, total = profiling.estimate_program(prog, params)
+        run, run_total = profiling.estimate_program(prog, params, **calib)
+        cap = paths[name]["captured"]
+        out[name] = {
+            "estimate_ms": total * 1e3, "estimate_ms_this_run": run_total * 1e3,
+            "by_class": {c: {"count": n, "ms": t * 1e3, "ms_this_run":
+                             run[c][1] * 1e3}
+                         for c, (n, t) in totals.items()},
+            "captured_execute_ms": cap["execute_ms_median"],
+            "device_busy_ms": cap["profile"]["device_ms"]}
+        if not (total > 0 and run_total > 0):
+            raise AssertionError(f"{name}: estimate {total}, {run_total}")
+    print("estimate_vs_measured " + json.dumps(out), flush=True)
+    print(f"profiling_s {time.perf_counter() - t0:.2f}", flush=True)
+    return out
 
 
 NTT_KERNELS = ("ntt_fwd_kernel", "ntt_inv_kernel")
@@ -847,8 +1029,9 @@ def main() -> int:
     kern = kernel_phase(device)
     kern.update(ks_kernel_phase(device))
 
-    # -- 3. the main path ----------------------------------------------------
-    paths = {}
+    # -- 3. keygen on the card, then the main path ---------------------------
+    keygen = keygen_phase(device)
+    paths, compiled_by_name = {}, {}
     programs = (("sobel", build_sobel, 11), ("harris", build_harris, 13),
                 ("sobel128", lambda: build_sobel(128, 128), 19))
     for name, build, seed in programs:
@@ -861,6 +1044,7 @@ def main() -> int:
         res["shards"] = pub._executor_for(compiled)._get_torch_program().k
         if res["shards"] != (2 if name == "sobel128" else 1):
             raise AssertionError(f"{name}: {res['shards']} shards")
+        compiled_by_name[name] = (compiled, pub.params)
         res["captured"] = capture_phase(name, pub, compiled, enc, ref_out)
         prof = res["profile"] = res["captured"]["profile"]
         if not (prof["ks_ms"] > 0 and prof["ntt_ms"] > 0):
@@ -907,6 +1091,7 @@ def main() -> int:
     print("path sobel_batch " + json.dumps(batch), flush=True)
     paths["sobel_batch4"] = batch["batch4"]
     paths["sobel_pipelined8"] = batch["pipelined8"]
+    profiling_phase(device, compiled_by_name, paths)
 
     # -- 4. the kernel line, then the device line ----------------------------
     ntt_info = ntt_cuda.kernel_info(14, device)
@@ -930,6 +1115,9 @@ def main() -> int:
             "launches_per_execute": {
                 p: paths[p]["captured"]["launches_per_execute"][counter].get(
                     name, 0) for p in paths if "captured" in paths[p]},
+            "launches_keygen": {
+                p: paths[p]["keygen_launches"][counter].get(name, 0)
+                for p in paths if "keygen_launches" in paths[p]},
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "eager_ms": k["eager_ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
@@ -939,6 +1127,12 @@ def main() -> int:
             entry["also_replaces"] = f"eva_tpu/backend/{also}"
         fields = ("shape", "ms", "eager_ms", "plain_ms", "bound_ms",
                   "bound_by")
+        if name == "ntt_fwd":
+            entry["keygen"] = {
+                p: {"keys": keygen[p]["keys"],
+                    "rows_per_launch": keygen[p]["ntt_rows_per_launch"],
+                    **{f: kern[(name, f"keygen_{p}")][f] for f in fields}}
+                for p in keygen}
         if ntt:
             res = ntt_info[f"{name}_kernel"]
             entry.update(cluster=k["cluster"], registers=res["registers"],

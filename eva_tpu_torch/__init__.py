@@ -6,7 +6,8 @@ python/eva/__init__.py): build an `EvaProgram` with `Input`/`Output` and
 operator overloads, compile with `eva_tpu_torch.ckks.CKKSCompiler`, generate keys
 with `eva_tpu_torch.runtime.generate_keys`, then encrypt/execute/decrypt. The
 compute path runs on PyTorch (hand-written CUDA NTT kernels on the GPU).
-Serialization (`save`/`load`) is not ported yet."""
+`save`/`load` write and read the protocol objects in the JAX package's
+wire format (eva_tpu_torch.serialization; needs `protobuf`)."""
 
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from .reference import evaluate
 
 __all__ = [
     "Op", "Type", "Term", "Program", "Expr", "EvaProgram", "Input", "Output",
-    "py_to_eva", "evaluate", "set_num_threads", "version",
+    "py_to_eva", "evaluate", "set_num_threads", "version", "save", "load",
 ]
 
 __version__ = "0.2.0"
@@ -148,3 +149,15 @@ def set_num_threads(num_threads: int) -> None:
     from . import runtime
     runtime.HOST_THREADS = max(1, int(num_threads))
 
+
+def save(obj, path: str) -> None:
+    from .serialization import save as _save
+    _save(obj, path)
+
+
+def load(path: str, backend: str = "torch", device=None):
+    """The object saved at `path`. A public context (EVAPublic) is built
+    on `backend`/`device`, as generate_keys builds it: device=None means
+    the CUDA device and raises without one."""
+    from .serialization import load as _load
+    return _load(path, backend=backend, device=device)

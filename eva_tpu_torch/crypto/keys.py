@@ -263,7 +263,7 @@ def generate_keys(ctx: CKKSContext, alpha: int = None,
                   engine=None) -> KeySet:
     """engine=None: host numpy. An engine (backend/keygen.DeviceKeygen)
     batches the per-digit KSK arithmetic on device — byte-identical key
-    material, ~4x faster wall time for rotation-heavy key sets."""
+    material."""
     if alpha is None:
         alpha = default_ks_alpha(ctx)
     rng = _rng()

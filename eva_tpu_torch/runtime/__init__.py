@@ -253,11 +253,19 @@ def generate_keys(params: CKKSParameters, backend: str = "torch",
 
     Reference: eva/seal/seal.cpp:174-203 (generateKeys): builds the RNS
     chain, samples the ternary secret, RLWE public key, relinearization
-    key, and one Galois key per rotation step (host numpy). With the
-    torch backend, `device=None` means the CUDA device, and the call
-    raises when there is none; pass device="cpu" to execute with the
-    plain PyTorch version, or backend="numpy" for the host reference."""
+    key, and one Galois key per rotation step. With the torch backend,
+    `device=None` means the CUDA device, and the call raises when there
+    is none; pass device="cpu" to execute with the plain PyTorch
+    version, or backend="numpy" for the host reference.
+
+    On a CUDA device the key-switching-key arithmetic of every key runs
+    there (backend/keygen.DeviceKeygen: one NTT kernel launch per key);
+    the randomness stays host-sampled, so the keys are byte-identical to
+    the host path's for the same randomness. An engine that fails to
+    build or launch raises: there is no fallback to the host. On the
+    CPU device and on the numpy backend keygen is host numpy."""
     _check_backend(backend)
+    engine = None
     if backend == "torch":
         # Fail before the (slow) host keygen when there is no device.
         from ..backend import resolve_device
@@ -265,6 +273,9 @@ def generate_keys(params: CKKSParameters, backend: str = "torch",
     ctx = get_context(tuple(params.prime_bits), tuple(params.rotations),
                       params.poly_modulus_degree,
                       getattr(params, "key_terms", 1))
-    keys = _keys.generate_keys(ctx)
+    if backend == "torch" and device.type == "cuda":
+        from ..backend.keygen import DeviceKeygen
+        engine = DeviceKeygen(ctx, device)
+    keys = _keys.generate_keys(ctx, engine=engine)
     return (EVAPublic(ctx, keys, params, backend=backend, device=device),
             EVASecret(ctx, keys, params))

@@ -294,3 +294,58 @@ def test_cuda_captured_graph_refuses_a_wrong_input_shape(card_program):
     with pytest.raises(ValueError, match="input shape"):
         entry.fill({**cipher, name: [p[..., :-1, :] for p in planes]},
                    plain)
+
+
+# -- key generation on the card -----------------------------------------------
+
+
+@pytest.mark.parametrize("alpha", [1, 2])
+def test_cuda_device_keygen_matches_host(cuda, alpha):
+    """DeviceKeygen on the card (one K1 launch over every digit group and
+    the full basis) against the host loop on the same randomness, byte
+    for byte, at tests/test_crypto.py's context at N = 8192."""
+    from eva_tpu_torch.backend.keygen import DeviceKeygen
+    from eva_tpu_torch.crypto import keys as K
+    from eva_tpu_torch.crypto.context import CKKSContext
+
+    ctx = CKKSContext([60, 30, 60, 60], [1, -2, 4], 8192)
+    rng = np.random.default_rng(alpha)
+    s = K.SecretKey(ctx, rng.integers(-1, 2, ctx.n, dtype=np.int64))
+    basis = ctx.all_primes
+    groups = ctx.ks_groups(alpha)
+    As = [K.expand_uniform(ctx, basis, rng.bytes(32)) for _ in groups]
+    Es = [np.rint(rng.normal(0.0, 3.2, ctx.n)).astype(np.int64)
+          for _ in groups]
+    facs = rng.integers(0, np.array(basis, dtype=np.uint64),
+                        (len(groups), len(basis)), dtype=np.uint64)
+    args = (s.s, (s.s * s.s) % ctx.qvec(basis), As, Es, facs)
+    before = dict(ntt_cuda.LAUNCHES)
+    got = K._ksk_compute(ctx, *args, DeviceKeygen(ctx, cuda))
+    assert ntt_cuda.LAUNCHES["ntt_fwd"] == before["ntt_fwd"] + 1
+    assert ntt_cuda.ROWS["ntt_fwd"][len(groups) * len(basis)] > 0
+    for want_list, got_list in zip(K._ksk_compute(ctx, *args, None), got):
+        for a, b in zip(want_list, got_list):
+            assert b.dtype == np.uint64
+            np.testing.assert_array_equal(a, b)
+
+
+def test_cuda_generate_keys_runs_the_engine_without_fallback(cuda,
+                                                             monkeypatch):
+    """generate_keys on the card makes every key-switching key through
+    DeviceKeygen (one K1 launch a key), and raises when the engine
+    fails instead of falling back to the host loop."""
+    from eva_tpu_torch.backend.keygen import DeviceKeygen
+    from eva_tpu_torch.ckks.params import CKKSParameters
+    from eva_tpu_torch.runtime import generate_keys
+
+    params = CKKSParameters([60, 40, 60], [1, 2], 2048)
+    before = ntt_cuda.LAUNCHES["ntt_fwd"]
+    pub, _ = generate_keys(params)
+    assert ntt_cuda.LAUNCHES["ntt_fwd"] - before == 1 + len(pub._keys.galois)
+
+    def broken(self, *args):
+        raise RuntimeError("engine failed")
+
+    monkeypatch.setattr(DeviceKeygen, "_compute", broken)
+    with pytest.raises(RuntimeError, match="engine failed"):
+        generate_keys(params)

@@ -274,7 +274,10 @@ def test_public_context_and_executor_default_to_the_card(monkeypatch):
 
 def test_import_pulls_in_neither_jax_nor_eva_tpu():
     code = ("import sys, eva_tpu_torch, eva_tpu_torch.runtime, "
-            "eva_tpu_torch.convert, eva_tpu_torch.backend.executor_torch; "
+            "eva_tpu_torch.convert, eva_tpu_torch.backend.executor_torch, "
+            "eva_tpu_torch.backend.keygen, eva_tpu_torch.profiling, "
+            "eva_tpu_torch.runtime.noise, eva_tpu_torch.std.numeric, "
+            "eva_tpu_torch.serialization; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'eva_tpu' or "
             "m.startswith('eva_tpu.')]; print(bad); sys.exit(bool(bad))")
