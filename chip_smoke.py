@@ -60,12 +60,22 @@ Phases (any failure exits non-zero and prints no result line):
      under the same checks and its own MSE limit. Then, all through
      graphs, execute_batch of 4 Sobel requests and execute_pipelined
      over 8, each output bit-identical to its own sequential execute,
-     with the key-switch kernels launched at batch 4. Then
+     with the key-switch kernels launched at batch 4. Then the mesh
+     phase (mesh_phase): a one-rank NCCL world; execute_batch of 4 Sobel
+     requests on a (batch 1, limb 1) mesh, bit-identical to the batch
+     without a mesh, through the captured program (K1, K2, K4, K5
+     launched, counted as path sobel_mesh; no plain version), both timed
+     in turns; ShardedKeySwitch and ShardedNTT at one shard against the
+     fused key switch and K1; the one-rank collective overhead; with
+     more than one card, Sobel on {batch, limb} and {seq} meshes of one
+     rank per card against one card (this script's --mesh-rank
+     processes, waited for). Then
      eva_tpu_torch.profiling: the measured HBM roofline, profile()'s
      table and calibration, and estimate_program for each program beside
      its captured execute and device busy time.
   4. One JSON line of kernel numbers (keygen's K1 launches under
-     `launches_keygen`), then the device line last.
+     `launches_keygen`, the mesh phase's under launches_by_path
+     "sobel_mesh"), then the device line last.
 
 Imports nothing of JAX and nothing of the JAX package eva_tpu."""
 
@@ -998,6 +1008,212 @@ def batch_phase(pub, compiled, sig, seed, reps=3):
                         "ms_all": seq_ms}}
 
 
+def _mesh_payload(pub, encs, want):
+    """The key set, ciphertexts and single-device outputs as plain arrays
+    for the ranks of a multi-card mesh run (mesh_rank_main)."""
+    ks = pub._keys
+
+    def kd(k):
+        return dict(k0=list(k.k0), k1=list(k.k1), alpha=k.alpha)
+
+    return {
+        "keys": dict(secret_coeffs=ks.secret.coeffs, secret_s=ks.secret.s,
+                     public_b=ks.public.b, public_a=ks.public.a,
+                     relin=kd(ks.relin),
+                     galois={g: kd(k) for g, k in ks.galois.items()}),
+        "encs": [(e["image"].polys, e["image"].level, e["image"].scale)
+                 for e in encs],
+        "want": [[np.asarray(p) for p in w["image"].polys] for w in want]}
+
+
+def mesh_rank_main(rank: int, world: int, port: int, tmp: str) -> int:
+    """One rank of a multi-card mesh run (one process per card, NCCL):
+    Sobel 90x90 execute_batch on a {batch, limb} and a {seq} mesh against
+    the single-device outputs in the payload. Rank 0 writes the
+    results."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+    from eva_tpu_torch import convert
+    from eva_tpu_torch.ckks import CKKSCompiler
+    from eva_tpu_torch.parallel import make_device_mesh, seq_compatible
+    from eva_tpu_torch.runtime import EVAPublic
+
+    device = torch.device("cuda", rank)
+    torch.cuda.set_device(device)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank, device_id=device)
+    try:
+        with open(os.path.join(tmp, "payload.pkl"), "rb") as fh:
+            payload = pickle.load(fh)
+        compiled, params, _ = CKKSCompiler(
+            {"warn_vec_size": "false"}).compile(build_sobel())
+        from eva_tpu_torch.crypto.context import get_context
+        ctx = get_context(tuple(params.prime_bits), tuple(params.rotations),
+                          params.poly_modulus_degree, params.key_terms)
+        kp = payload["keys"]
+        keys = convert.keyset_from_numpy(
+            ctx, kp["secret_coeffs"], kp["public_b"], kp["public_a"],
+            relin=kp["relin"], galois=kp["galois"], secret_s=kp["secret_s"])
+        pub = EVAPublic(ctx, keys, params, device=device)
+        encs = [{"image": convert.ciphertext_from_numpy(*e)}
+                for e in payload["encs"]]
+        meshes = {"batch_limb": {"limb_axis": 2 if world % 2 == 0 else 1}}
+        if seq_compatible(ctx.n, world):
+            meshes["seq"] = {"seq_axis": world}
+        results = {}
+        for label, args in meshes.items():
+            mesh = make_device_mesh(world, **args)
+            out = pub.execute_batch(compiled, encs, mesh=mesh)
+            equal = all(np.array_equal(a, b) for o, w in
+                        zip(out, payload["want"])
+                        for a, b in zip(o["image"].polys, w))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pub.execute_batch(compiled, encs, mesh=mesh)
+            torch.cuda.synchronize()
+            results[label] = {
+                "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+                "bit_identical": equal,
+                "ms_per_request": (time.perf_counter() - t0) * 1e3
+                / len(encs)}
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        with open(os.path.join(tmp, "result.pkl"), "wb") as fh:
+            pickle.dump(results, fh)
+    return 0
+
+
+def multi_card_mesh(pub, encs, want, world: int):
+    """Spawn one rank per card (this script with --mesh-rank) and run
+    Sobel on {batch, limb} and {seq} meshes against the single-device
+    outputs `want`; every process is waited for (or killed)."""
+    import pickle
+    import tempfile
+
+    from eva_tpu_torch.profiling import _free_port
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        with open(os.path.join(tmp, "payload.pkl"), "wb") as fh:
+            pickle.dump(_mesh_payload(pub, encs, want), fh)
+        port = _free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+             str(r), str(world), str(port), tmp], cwd=root)
+            for r in range(world)]
+        try:
+            rcs = [p.wait(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(rcs):
+            raise AssertionError(f"mesh ranks exited {rcs}")
+        with open(os.path.join(tmp, "result.pkl"), "rb") as fh:
+            results = pickle.load(fh)
+    for label, res in results.items():
+        if not res["bit_identical"]:
+            raise AssertionError(f"sobel on the {label} mesh of {world} "
+                                 f"cards differs from one card")
+    return results
+
+
+def mesh_phase(device, pub, compiled, sig, seed, reps=3):
+    """Multi-device execution at world size 1 over NCCL (the machine has
+    one card): execute_batch of 4 Sobel requests on a (batch 1, limb 1)
+    mesh, bit-identical to the same batch without a mesh, through the
+    captured single-device program (K1, K2, K4, K5 launched, no plain
+    version), both timed in turns; ShardedKeySwitch at one shard at
+    Sobel's level 0 against the fused key switch, and ShardedNTT at one
+    shard at [11, 16384] against K1, bit-identical and timed; the
+    one-rank collective overhead. With more than one card, Sobel on
+    {batch, limb} and {seq} meshes of one rank per card as well."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from eva_tpu_torch import profiling
+    from eva_tpu_torch.backend.tables import DeviceLevelOps
+    from eva_tpu_torch.parallel import (ShardedKeySwitch, get_sharded_ntt,
+                                        make_device_mesh)
+
+    rng = np.random.default_rng(seed)
+    encs = [pub.encrypt({"image": rng.uniform(0, 1, sig.vec_size).tolist()},
+                        sig) for _ in range(4)]
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{profiling._free_port()}",
+        world_size=1, rank=0, device_id=device)
+    try:
+        mesh = make_device_mesh(1)
+        want = pub.execute_batch(compiled, encs)
+        reset_counts()
+        got = pub.execute_batch(compiled, encs, mesh=mesh)
+        counts = read_counts()
+        check_counts("sobel mesh", counts, fused=True)
+        tp = pub._executor_for(compiled)._get_torch_program()
+        plans = [v[1] for v in tp._sharded_cache.values() if v[0] is mesh]
+        if plans != ["batch"]:
+            raise AssertionError(f"sobel mesh: plans {plans}")
+        for b, (w, g) in enumerate(zip(want, got)):
+            check_equal(f"sobel mesh element {b}", w, g)
+        ms = {"no_mesh": [], "mesh": []}
+        for label in ("no_mesh", "mesh", "mesh", "no_mesh") * reps:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pub.execute_batch(compiled, encs,
+                              mesh=mesh if label == "mesh" else None)
+            ms[label].append((time.perf_counter() - t0) * 1e3 / len(encs))
+
+        # ShardedKeySwitch, one shard, against the fused key switch.
+        ctx, keys = pub.ctx, pub._keys
+        n = ctx.n
+        primes = ctx.primes_at_level(0)
+        poly = torch.from_numpy(np.stack(
+            [rng.integers(0, q, n) for q in primes])).to(device)
+        sks = ShardedKeySwitch(ctx, keys.relin, 0, init_device_mesh(
+            "cuda", (1,), mesh_dim_names=("digit",)))
+        fused = tp._key_switch(poly, 0, keys.relin)
+        sharded = sks(poly)
+        for name, a, b in zip(("d0", "d1"), fused, sharded):
+            if not torch.equal(a, b):
+                raise AssertionError(f"ShardedKeySwitch {name} differs from "
+                                     f"the fused key switch")
+        ks_ms = {"sharded_1": eager_ms(lambda: sks(poly), 20),
+                 "fused": eager_ms(lambda: tp._key_switch(poly, 0,
+                                                          keys.relin), 20)}
+
+        # ShardedNTT, one shard, against K1.
+        dev = DeviceLevelOps(primes, n, device)
+        sntt = get_sharded_ntt(tuple(primes), n, dist.group.WORLD, device)
+        x3 = poly.reshape(len(primes), sntt.n1, sntt.n2)
+        if not torch.equal(sntt.ntt(x3).reshape(len(primes), n),
+                           dev.ntt(poly)):
+            raise AssertionError("ShardedNTT differs from K1")
+        if not torch.equal(sntt.intt(sntt.ntt(x3)), x3):
+            raise AssertionError("ShardedNTT does not round-trip")
+        ntt_ms = {"sharded_1": eager_ms(lambda: sntt.ntt(x3), 10),
+                  "k1": eager_ms(lambda: dev.ntt(poly), 50)}
+        overhead = profiling.measure_collective_overhead_us(device)
+        world = torch.cuda.device_count()
+        multi = (multi_card_mesh(pub, encs, want, world) if world > 1
+                 else None)
+    finally:
+        dist.destroy_process_group()
+    return {
+        "ranks": 1, "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+        "plans": plans, "batch4": counts,
+        "ms_per_request": {k: statistics.median(v) for k, v in ms.items()},
+        "ms_per_request_all": ms,
+        "sharded_key_switch_ms": ks_ms, "ks_shape": [len(primes), n],
+        "sharded_ntt_ms": ntt_ms, "ntt_shape": [len(primes), n],
+        "collective_overhead_us": overhead, "cards": world,
+        "multi_card": multi}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1091,6 +1307,9 @@ def main() -> int:
     print("path sobel_batch " + json.dumps(batch), flush=True)
     paths["sobel_batch4"] = batch["batch4"]
     paths["sobel_pipelined8"] = batch["pipelined8"]
+    mesh = mesh_phase(device, pub, compiled, sig, 23)
+    print("mesh " + json.dumps(mesh), flush=True)
+    paths["sobel_mesh"] = mesh["batch4"]
     profiling_phase(device, compiled_by_name, paths)
 
     # -- 4. the kernel line, then the device line ----------------------------
@@ -1152,4 +1371,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:  # one rank of multi_card_mesh
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(mesh_rank_main(*map(int, sys.argv[2:5]), sys.argv[5]))
     sys.exit(main())

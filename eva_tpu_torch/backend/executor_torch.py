@@ -34,8 +34,13 @@ at a time (`run`), a batch stacked on a leading axis (`run_batched`), or
 a stream with the next execution enqueued before the last one's outputs
 are fetched (`run_pipelined`). Raw subgraphs stay host-side.
 
-Not ported yet (raises NotImplementedError in the runtime): mesh
-(multi-device) execution."""
+On a mesh (`run_batched(..., mesh=...)`, eva_tpu_torch.parallel), one
+process per device runs the program on its shard, as the JAX package's
+shard_map does: its batch slice (through the captured graph on the
+card), its key-switch digit shard with a modular all-reduce of the
+partial sums (limb / hlimb axes: _ks_dp), and its slice of the ring
+axis with one all-to-all per NTT (seq axis: _lops, _aperm). The
+digit-parallel and seq programs run eagerly."""
 
 from __future__ import annotations
 
@@ -48,6 +53,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..crypto import keys as K
 from ..crypto.bigvec import rotation_plan
@@ -98,6 +104,31 @@ def _ks_dev_tables(ctx, level: int, alpha: int):
     for i, q in enumerate(basis):
         conv_mont[:n_cur, i, 0] = to_mont(conv[:, i], q)
     return n_groups, inv_mont, conv_mont
+
+
+@lru_cache(maxsize=None)
+def _ks_dp_tables(ctx, level: int, alpha: int, n_dev: int):
+    """Digit-parallel decomposition tables for one (level, alpha),
+    padded so the digit axis splits evenly over n_dev digit shards.
+
+    member[j, k] = data-prime index of the k-th member of digit group j
+                   (0 for padding slots — their conv rows are zero, so
+                   they contribute exact zeros to the modular sum)
+    conv_m[j, k, i, 0] = (Qg_j/q_member) mod basis[i], Montgomery form"""
+    primes = ctx.primes_at_level(level)
+    basis = primes + ctx.key_primes
+    groups, _, conv = ctx.ks_tables(level, alpha)
+    n_groups = len(groups)
+    n_dig = n_groups + (-n_groups % n_dev)
+    member = np.zeros((n_dig, alpha), dtype=np.int64)
+    conv_m = np.zeros((n_dig, alpha, len(basis), 1), dtype=np.uint32)
+    for j, g in enumerate(groups):
+        for k, t in enumerate(g):
+            member[j, k] = t
+            for i, q in enumerate(basis):
+                conv_m[j, k, i, 0] = to_mont(
+                    np.array([conv[t, i]], dtype=np.uint64), q)[0]
+    return member, conv_m
 
 
 @lru_cache(maxsize=None)
@@ -232,6 +263,55 @@ class DeviceKeys:
             self._cache[key] = (ksk, self._build_dense(ksk, level))
         return self._cache[key][1]
 
+    def dp_layout(self, ksk: K.KSwitchKey, level: int, n_dev: int,
+                  shard: int, seq=None):
+        """(k0, k1) of digit shard `shard` of n_dev: [n_dig / n_dev,
+        n_ext, N] Montgomery planes, the digit axis zero-padded to a
+        multiple of n_dev (padding digits are zero key rows: they add
+        exact zeros to the modular sum), and with seq = (index, count)
+        this rank's contiguous slice of the ring axis (evaluation-domain
+        planes; parallel/seq_exec). The layout the digit-parallel key
+        switch reads (TorchProgram._ks_dp).
+
+        NOT inverse-permuted (unlike layout_rot): the dp non-hoisted
+        rotation decomposes the PERMUTED polynomial, and decomposing
+        sigma(c1) is not value-identical to permuting the digits of c1
+        (the fast-base-extension representative is built from standard,
+        non-centered residues), so permuted keys would break bit-parity
+        with the single-device path."""
+        key = ("dp", id(ksk), level, n_dev, shard, seq)
+        if key not in self._cache:
+            full0, full1 = self._build_dp(ksk, level, n_dev)
+            loc = full0.shape[0] // n_dev
+            cols = slice(None)
+            if seq is not None:
+                nloc = self.ctx.n // seq[1]
+                cols = slice(seq[0] * nloc, (seq[0] + 1) * nloc)
+            self._cache[key] = (ksk, tuple(
+                _to_dev(k[shard * loc:(shard + 1) * loc, :, cols],
+                        self.device) for k in (full0, full1)))
+        return self._cache[key][1]
+
+    def _build_dp(self, ksk: K.KSwitchKey, level: int, n_dev: int):
+        """Host (k0, k1) [n_dig, n_ext, N] of dp_layout, every shard."""
+        ctx = self.ctx
+        primes = ctx.primes_at_level(level)
+        basis = primes + list(ctx.key_primes)
+        n_groups, _, _ = _ks_maps(ctx, level, ksk.alpha)
+        n_dig = n_groups + (-n_groups % n_dev)
+        n_data_all = len(ctx.data_primes)
+        row_idx = list(range(len(primes))) + [
+            n_data_all + i for i in range(len(ctx.key_primes))]
+
+        def pack(klist):
+            k = np.zeros((n_dig, len(basis), ctx.n), dtype=np.uint64)
+            for j in range(n_groups):
+                k[j] = klist[j][row_idx]
+            return np.stack([_to_mont_rows(k[j], basis)
+                             for j in range(n_dig)])
+
+        return pack(ksk.k0), pack(ksk.k1)
+
     def _build_dense(self, ksk: K.KSwitchKey, level: int):
         ctx = self.ctx
         primes = ctx.primes_at_level(level)
@@ -313,6 +393,11 @@ class TorchProgram:
     # so that chip_smoke.py, tools/cuda_ab.py and the GPU tests can hold
     # captured runs against eager ones in one process.
     _capture = True
+    # Digit-parallel / sequence-parallel contexts, installed while a
+    # mesh program runs (_body_dp, _body_seq); class defaults so that
+    # shims built with __new__ take the single-device path.
+    _dp = None
+    _seq = None
 
     def __init__(self, program: Program, ctx: CKKSContext, keys: K.KeySet,
                  plan, types, order: List[Term], device):
@@ -367,6 +452,10 @@ class TorchProgram:
         # One captured graph per input key (see _capture_key), the
         # counterpart of JaxProgram._jit_cache.
         self._captured: Dict[Tuple, _Captured] = {}
+        # Checked mesh plans by mesh and input shapes (_sharded), the
+        # counterpart of JaxProgram._sharded_cache: (mesh, plan name,
+        # run).
+        self._sharded_cache: Dict[Tuple, tuple] = {}
 
     def _const(self, key, arr: np.ndarray) -> torch.Tensor:
         """A static host table (key-switch constants, digit maps) on the
@@ -389,13 +478,280 @@ class TorchProgram:
             self._upload_cache.popitem(last=False)
         return dev
 
+    # -- digit-parallel and sequence-parallel (mesh) execution ---------------
+
+    def _ks_sites(self):
+        """(name, level, alpha) for every key switch the program
+        performs; mirrors the _traced dispatch, so that the digit shards'
+        tables and keys can be made before a mesh program runs."""
+        ctx = self.ctx
+        sites = set()
+        for term in self.order:
+            op = term.op
+            if self.types[term] == Type.Raw:
+                continue
+            idx = term.index
+            args = term.operands
+            if op in (Op.RotateLeftConst, Op.RotateRightConst):
+                steps = term.get_attr(ROTATION)
+                if op == Op.RotateRightConst:
+                    steps = -steps
+                if steps % (self.k * (ctx.n // 2)) == 0:
+                    continue
+                g = ctx.galois_elt(steps)
+                sites.add((f"galois_{g}", self.plan[idx].level,
+                           self.keys.galois[g].alpha))
+            elif op == Op.Relinearize:
+                if idx in self._fused_relins:
+                    continue  # key switch happens at the Rescale site
+                if args[0].index in self._fused_rescales:
+                    # _rescale_relin: KS at the post-rescale level
+                    lvl = self.plan[args[0].operands[0].index].level + 1
+                else:
+                    lvl = self.plan[idx].level
+                sites.add(("relin", lvl, self.keys.relin.alpha))
+            elif op == Op.Rescale and args[0].index in self._fused_relins:
+                # _relin_rescale: KS at the pre-rescale level
+                lvl = self.plan[args[0].operands[0].index].level
+                sites.add(("relin", lvl, self.keys.relin.alpha))
+        return sorted(sites)
+
+    def _ks_dp_digits(self, coeffs, level: int, alpha: int):
+        """This rank's gadget digits (FBE + extended-basis NTT) for the
+        digit shard it owns. coeffs: [..., n_cur, N] coefficient domain,
+        the same on every rank of the digit axis. Returns
+        [..., loc, n_ext, N] NTT-domain digit planes."""
+        ctx = self.ctx
+        dev = self._ops_at(level)
+        ext = self._ext_ops_at(level)
+        n_ext = len(ctx.primes_at_level(level)) + len(ctx.key_primes)
+        member, conv = self._dp["tables"][(level, alpha)]
+        _, inv_mont, _ = _ks_dev_tables(ctx, level, alpha)
+        y = dev.mul_mont(coeffs, self._const(("ks_inv", level, alpha),
+                                             inv_mont))
+        loc = member.shape[0]
+        nloc = y.shape[-1]  # = ctx.n, or the local shard on a seq mesh
+        ym = torch.index_select(y, -2, member.reshape(-1))
+        ym = ym.reshape(y.shape[:-2] + (loc, alpha, 1, nloc))
+        prod = ext.mul_mont(ym.expand(
+            y.shape[:-2] + (loc, alpha, n_ext, nloc)), conv)
+        acc = prod[..., 0, :, :]
+        for k in range(1, alpha):
+            acc = ext.add(acc, prod[..., k, :, :])
+        return ext.ntt(acc)
+
+    def _ks_dp(self, coeffs, level: int, site: str, alpha: int,
+               perm=None, out_ntt: bool = True, digits=None,
+               defer: bool = False):
+        """Digit-parallel key switch: each rank runs the FBE + NTT +
+        key-MAC pipeline for ITS digit shard, the partial inner products
+        are combined by a modular all-reduce over the digit axis
+        (parallel/ks_shard), and the P-division tail runs replicated.
+        Bit-identical to the single-device path: modular sums are exact
+        and order-independent. `perm` permutes the local digit shard
+        (hoisted rotations: the shard axis is the digit axis, so the
+        N-axis permutation is rank-local, or a seq-axis exchange)."""
+        from ..parallel.ks_shard import (_modular_all_reduce,
+                                         hierarchical_modular_all_reduce)
+        ctx = self.ctx
+        dp = self._dp
+        ext = self._ext_ops_at(level)
+        if digits is None:
+            digits = self._ks_dp_digits(coeffs, level, alpha)
+        if perm is not None:
+            digits = perm(digits)
+        k0, k1 = dp["keys"][f"{site}@L{level}"]     # local [loc, n_ext, N]
+        t0 = ext.mul_mont(digits, k0)
+        t1 = ext.mul_mont(digits, k1)
+
+        def dig_sum(t):
+            s = t[..., 0, :, :]
+            for j in range(1, t.shape[-3]):
+                s = ext.add(s, t[..., j, :, :])
+            return s
+
+        acc0, acc1 = dig_sum(t0), dig_sum(t1)
+        if dp["dcn_group"] is not None:
+            # Digits sharded over ("hlimb" x "limb"): intra-node
+            # reduce-scatter, 1/limb-sized cross-node all-reduce,
+            # intra-node gather (bit-identical to a flat all-reduce).
+            acc0, acc1 = (hierarchical_modular_all_reduce(
+                a, ext.q, dp["group"], dp["dcn_group"]) for a in (acc0, acc1))
+        else:
+            acc0, acc1 = (_modular_all_reduce(a, ext.q, dp["group"])
+                          for a in (acc0, acc1))
+        if defer:
+            # Rotation-sum fusion: the all-reduced accumulators are the
+            # same on every rank of the digit axis, like the tail's
+            # inputs; _ks_div2 later applies the identical division.
+            return acc0, acc1
+
+        def tail(acc):
+            x = ext.intt(acc)
+            prim = ctx.primes_at_level(level) + list(ctx.key_primes)
+            for _ in ctx.key_primes:
+                x = self._divide_last(x, prim)
+                prim = prim[:-1]
+            # _lops, not level_ops: on a limb x seq mesh the output NTT
+            # must route through the seq-sharded transform.
+            return self._lops(prim).ntt(x) if out_ntt else x
+
+        return tail(acc0), tail(acc1)
+
+    def _dp_materialize(self, n_dig_shards: int, shard: int, seq=None):
+        """(tables, keys) of digit shard `shard` for every key-switch
+        site: {(level, alpha): (member, conv)} and {"site@Llevel": (k0,
+        k1)}, on this rank's device; with a seq context the keys are
+        this rank's slice of the ring axis."""
+        seq_ix = None
+        if seq is not None:
+            seq_ix = (dist.get_rank(seq["group"]), seq["n_dev"])
+        dp_tabs, dp_keys = {}, {}
+        for name, level, alpha in self._ks_sites():
+            if (level, alpha) not in dp_tabs:
+                member, conv = _ks_dp_tables(self.ctx, level, alpha,
+                                             n_dig_shards)
+                loc = member.shape[0] // n_dig_shards
+                mine = slice(shard * loc, (shard + 1) * loc)
+                dp_tabs[(level, alpha)] = (
+                    _to_dev(member[mine], self.device),
+                    _to_dev(conv[mine], self.device))
+            ksk = (self.keys.relin if name == "relin"
+                   else self.keys.galois[int(name.split("_")[1])])
+            dp_keys[f"{name}@L{level}"] = self.dkeys.dp_layout(
+                ksk, level, n_dig_shards, shard, seq_ix)
+        return dp_tabs, dp_keys
+
+    def _body_dp(self, cipher_in, plain_in, dp_tabs, dp_keys, group,
+                 seq=None, dcn_group=None):
+        """Run the program with the digit-parallel key-switch context
+        installed: dp_tabs/dp_keys are this rank's digit shard, `group`
+        the digit axis's process group. `seq` (a seq context, see
+        _sharded) installs the sequence-parallel context as well: the
+        digit partial sums all-reduce over "limb" while each digit's
+        NTTs all-to-all over "seq". `dcn_group` adds a node-spanning
+        second digit axis whose accumulation runs hierarchically."""
+        self._dp = {"group": group, "tables": dp_tabs, "keys": dp_keys,
+                    "dcn_group": dcn_group}
+        self._seq = seq
+        try:
+            return self._traced(cipher_in, plain_in)
+        finally:
+            self._dp = None
+            self._seq = None
+
+    def _body_seq(self, cipher_in, plain_in, seq):
+        """Run the program with the sequence-parallel (sharded ring
+        axis) context installed; inputs are rank-local evaluation-domain
+        planes [..., n_sub, N/n_dev]."""
+        self._seq = seq
+        try:
+            return self._traced(cipher_in, plain_in)
+        finally:
+            self._seq = None
+
+    def _sharded(self, mesh, cipher, plain, consts):
+        """The checked plan of this program on `mesh` for one input key
+        (the counterpart of JaxProgram._sharded_jit), cached by mesh and
+        input shapes: a function of the rank-local device inputs for
+        the digit-parallel and seq programs, or None for the
+        single-device program on the local batch (captured on the card).
+        Every rank calls it with the same shapes.
+
+        With a "limb" axis > 1 (and "hlimb"), the gadget digits of every
+        key switch are sharded over the axis and accumulated with a
+        modular all-reduce; dyadic ops run replicated across it. With a
+        "seq" axis the ring axis of every polynomial is sharded."""
+        from ..parallel.seq_exec import seq_compatible
+        from ..parallel.sharding import (axis_group, axis_index,
+                                         axis_size, check_ici_axes,
+                                         mesh_device, node_ids)
+        key = (id(mesh),) + self._capture_key(cipher, plain, consts)[:2]
+        hit = self._sharded_cache.get(key)
+        if hit is not None and hit[0] is mesh:
+            return hit[2]
+        if mesh_device(mesh) != self.device:
+            raise ValueError(f"mesh device {mesh_device(mesh)} is not the "
+                             f"program's device {self.device}")
+        # Also guards hand-built meshes: collective-bearing axes must
+        # not span nodes.
+        check_ici_axes(node_ids(mesh), list(mesh.mesh_dim_names or ()))
+        n_dp = axis_size(mesh, "limb")
+        n_seq = axis_size(mesh, "seq")
+        n_hl = axis_size(mesh, "hlimb")  # node-spanning digit axis
+        n_dig_shards = n_dp * n_hl
+        use_dp = (n_dig_shards > 1 and self.k == 1
+                  and (n_dp & (n_dp - 1)) == 0
+                  and (n_hl & (n_hl - 1)) == 0
+                  and bool(self._ks_sites()))
+        if n_hl > 1:
+            if n_seq > 1:
+                raise ValueError(
+                    'mesh axes "hlimb" and "seq" do not compose')
+            if not use_dp:
+                raise ValueError(
+                    'mesh axis "hlimb" > 1 needs power-of-two sizes '
+                    "and a program with key switches")
+        seq = None
+        if n_seq > 1:
+            if self.k != 1:
+                raise ValueError(
+                    "seq mesh axis: sharded big-vector programs "
+                    "(vec_size > N/2) are not supported")
+            if n_dp > 1 and not use_dp:
+                raise ValueError(
+                    "limb mesh axis > 1 needs a power-of-two size "
+                    "and a program with key switches")
+            if not seq_compatible(self.ctx.n, n_seq):
+                raise ValueError(
+                    f"ring size {self.ctx.n} cannot shard over "
+                    f"{n_seq} devices (seq must divide both 128 and "
+                    f"N/128 = {self.ctx.n // 128})")
+            seq = {"group": axis_group(mesh, "seq"), "n_dev": n_seq,
+                   "perms": {}}
+        run = None
+        if use_dp:
+            shard = axis_index(mesh, "hlimb") * n_dp + axis_index(mesh, "limb")
+            dp_tabs, dp_keys = self._dp_materialize(n_dig_shards, shard, seq)
+            group = axis_group(mesh, "limb")
+            dcn = axis_group(mesh, "hlimb") if n_hl > 1 else None
+            run = lambda c, p: self._body_dp(c, p, dp_tabs, dp_keys, group,
+                                             seq=seq, dcn_group=dcn)
+        elif seq is not None:
+            run = lambda c, p: self._body_seq(c, p, seq)
+        # The plan's name: which sharded program runs ("batch", "dp",
+        # "dp+hlimb", "seq", "dp+seq").
+        plan = "+".join([p for p, on in (("dp", use_dp), ("hlimb", n_hl > 1),
+                                         ("seq", seq is not None)) if on])
+        self._sharded_cache[key] = (mesh, plan or "batch", run)
+        return run
+
     # -- device op helpers ---------------------------------------------------
 
     def _lops(self, primes) -> DeviceLevelOps:
+        """level_ops, sequence-parallel aware: with the seq context
+        installed (ring axis N sharded over a mesh axis), transforms
+        route through the all-to-all ShardedNTT; elementwise ops are
+        unchanged (per-row constants broadcast over the local N/D)."""
+        if self._seq is not None:
+            from ..parallel.seq_exec import get_seq_ops
+            return get_seq_ops(tuple(primes), self.ctx.n,
+                               self._seq["group"], self.device)
         return level_ops(list(primes), self.ctx.n, self.device)
 
-    def _aperm(self, g: int) -> DevPerm:
-        return dev_perm(self.ctx, g, self.device)
+    def _aperm(self, g: int):
+        """Galois automorphism applicator; in seq mode the N-permutation
+        is lifted over the sharded ring axis as one shard exchange plus
+        a local lane gather (seq_perm_galois)."""
+        base = dev_perm(self.ctx, g, self.device)
+        if self._seq is None:
+            return base
+        perms = self._seq["perms"]
+        if g not in perms:
+            from ..parallel.seq_exec import seq_perm_galois
+            perms[g] = seq_perm_galois(self.ctx, g, self._seq["group"],
+                                       base, self.device)
+        return perms[g]
 
     def _ops_at(self, level: int) -> DeviceLevelOps:
         return self._lops(self.ctx.primes_at_level(level))
@@ -504,6 +860,15 @@ class TorchProgram:
         ctx = self.ctx
         dev = self._ops_at(level)
         key_ops = self._lops(list(ctx.key_primes))
+        if self._seq is not None:
+            # Key planes are whole (evaluation domain = contiguous flat
+            # layout); each rank MACs its own slice.
+            from ..parallel.seq_exec import seq_slice
+            group = self._seq["group"]
+            layout = tuple(
+                tuple(None if k is None else seq_slice(k, group)
+                      for k in half)
+                for half in layout)
 
         def tree_sum(ops, t):
             while t.shape[-3] > 1:
@@ -538,7 +903,7 @@ class TorchProgram:
         primes = self.ctx.primes_at_level(level)
         ext = self._ext_ops_at(level)
 
-        if self._fused_ks_ok():
+        if self._fused_ks_ok() and self._dp is None:
             # The fused iNTT + P-division (+ output NTT) epilogue, also
             # for hoisted rotation sums (JAX executor_jax._ks_div2).
             n = self.ctx.n
@@ -570,6 +935,8 @@ class TorchProgram:
         are the kernels' ring sizes and key-prime count."""
         if os.environ.get("EVA_TPU_NO_FUSED_KS"):
             return False
+        if self._seq is not None:
+            return False  # the kernels see only the local N shard
         return (1024 <= self.ctx.n <= 32768
                 and len(self.ctx.key_primes) <= MAX_KEY_PRIMES)
 
@@ -643,6 +1010,22 @@ class TorchProgram:
         aperm = self._aperm(g)
         alpha = self.keys.galois[g].alpha
         c0 = aperm(polys[0])
+        if self._dp is not None:
+            site = f"galois_{g}"
+            if hoist is not None and src_key is not None:
+                digits = hoist.get(src_key)
+                if digits is None:
+                    digits = self._ks_dp_digits(dev.intt(polys[1]), level,
+                                                alpha)
+                    hoist[src_key] = digits
+                acc0, acc1 = self._ks_dp(None, level, site, alpha,
+                                         perm=aperm, digits=digits,
+                                         defer=True)
+            else:
+                c1 = aperm(polys[1])
+                acc0, acc1 = self._ks_dp(dev.intt(c1), level, site, alpha,
+                                         defer=True)
+            return ("rotsum", level, c0, None, acc0, acc1)
         if hoist is not None and src_key is not None:
             digits = hoist.get(src_key)
             if digits is None:
@@ -661,7 +1044,10 @@ class TorchProgram:
                 digits, level, self.dkeys.layout(self.keys.galois[g], level))
         return ("rotsum", level, c0, None, acc0, acc1)
 
-    def _key_switch(self, poly, level: int, ksk):
+    def _key_switch(self, poly, level: int, ksk, site: str = "relin"):
+        if self._dp is not None:
+            dev = self._ops_at(level)
+            return self._ks_dp(dev.intt(poly), level, site, ksk.alpha)
         if self._fused_ks_ok():
             dev = self._ops_at(level)
             return self._ks_fused_coeffs(dev.intt(poly), level, ksk,
@@ -924,7 +1310,10 @@ class TorchProgram:
         coeffs0 = dev.intt(polys[0])
         coeffs1 = dev.intt(polys[1])
         if len(polys) == 3:
-            if self._fused_ks_ok():
+            if self._dp is not None:
+                d0, d1 = self._ks_dp(dev.intt(polys[2]), level, "relin",
+                                     self.keys.relin.alpha, out_ntt=False)
+            elif self._fused_ks_ok():
                 d0, d1 = self._ks_fused_coeffs(
                     dev.intt(polys[2]), level, self.keys.relin,
                     out_ntt=False, poly_ntt=polys[2])
@@ -967,7 +1356,10 @@ class TorchProgram:
             coeffs.append(x)
         if len(polys) == 2:
             return [dev_new.ntt(c) for c in coeffs]
-        if self._fused_ks_ok():
+        if self._dp is not None:
+            d0, d1 = self._ks_dp(coeffs[2], new_level, "relin",
+                                 self.keys.relin.alpha, out_ntt=False)
+        elif self._fused_ks_ok():
             d0, d1 = self._ks_fused_coeffs(coeffs[2], new_level,
                                            self.keys.relin, out_ntt=False)
         else:
@@ -1000,6 +1392,22 @@ class TorchProgram:
                                         src_key)
         g = ctx.galois_elt(steps)
         aperm = self._aperm(g)
+        if self._dp is not None:
+            c0 = aperm(polys[0])
+            site = f"galois_{g}"
+            alpha = self.keys.galois[g].alpha
+            if hoist is not None and src_key is not None:
+                digits = hoist.get(src_key)
+                if digits is None:
+                    digits = self._ks_dp_digits(dev.intt(polys[1]), level,
+                                                alpha)
+                    hoist[src_key] = digits
+                d0, d1 = self._ks_dp(None, level, site, alpha, perm=aperm,
+                                     digits=digits)
+            else:
+                c1 = aperm(polys[1])
+                d0, d1 = self._ks_dp(dev.intt(c1), level, site, alpha)
+            return [dev.add(c0, d0), d1]
         if hoist is not None and src_key is not None:
             digits = hoist.get(src_key)
             if digits is None:
@@ -1097,14 +1505,15 @@ class TorchProgram:
     def _upload_plain(self, pt: Plaintext) -> torch.Tensor:
         return self._upload(pt, lambda p: _to_dev(_plain_np(p), self.device))
 
-    def _split(self, host_values_list, batched: bool):
+    def _split(self, host_values_list, batched: bool, shared=None):
         """Valuations as host arrays: (cipher {key: [planes]}, plain
         {key: planes}, consts {key: Plaintext}). Batched, every input is
         stacked on a leading axis, except a Plaintext that is the same
-        object in every valuation, which serves them all unstacked.
-        consts holds the program constants (input-free Encodes, the same
-        object in every valuation): they are uploaded once and read in
-        place."""
+        object in every valuation (or, given `shared`, whose term index
+        is in it: the same in every valuation of a larger list), which
+        serves them all unstacked. consts holds the program constants
+        (input-free Encodes, the same object in every valuation): they
+        are uploaded once and read in place."""
         first = host_values_list[0]
         cipher, plain, consts = {}, {}, {}
         for idx, v in first.items():
@@ -1114,7 +1523,8 @@ class TorchProgram:
                     np.stack([hv[idx].polys[k] for hv in host_values_list])
                     if batched else v.polys[k] for k in range(v.size)]
             elif isinstance(v, Plaintext):
-                if all(hv[idx] is v for hv in host_values_list):
+                if (idx in shared if shared is not None else
+                        all(hv[idx] is v for hv in host_values_list)):
                     if idx in self._const_terms:
                         consts[key] = v
                     else:
@@ -1144,6 +1554,11 @@ class TorchProgram:
         outputs copied into pinned host memory, all enqueued on the
         current stream. Returns (host outputs, CUDA event of their
         end). A capture or replay that fails raises."""
+        return _copy_out(self._replay_dev(cipher, plain, consts))
+
+    def _replay_dev(self, cipher, plain, consts):
+        """_replay up to the replay: returns the graph's static output
+        tensors, which the next replay of the same key rewrites."""
         key = self._capture_key(cipher, plain, consts)
         entry = self._captured.get(key)
         if entry is None:
@@ -1152,7 +1567,23 @@ class TorchProgram:
         else:
             entry.fill(cipher, plain)
         entry.replay()
-        return _copy_out(entry.out)
+        return entry.out
+
+    def _dev_inputs(self, cipher, plain, consts, seq=None):
+        """Host arrays (see _split) as device inputs of `_traced`; with a
+        seq process group, each plane's slice of the ring axis that
+        this rank holds (parallel/seq_exec)."""
+        from ..parallel.seq_exec import seq_slice
+
+        def cut(a):
+            return a if seq is None else seq_slice(a, seq)
+
+        device = self.device
+        return ({k: [_to_dev(cut(a), device) for a in planes]
+                 for k, planes in cipher.items()},
+                {**{k: _to_dev(cut(a), device) for k, a in plain.items()},
+                 **{k: cut(self._upload_plain(pt))
+                    for k, pt in consts.items()}})
 
     def _capture_graph(self, cipher, plain, consts) -> "_Captured":
         """Capture `_traced` for one input key: static input tensors,
@@ -1229,7 +1660,8 @@ class TorchProgram:
         return self._result({name: [c.cpu() for c in planes]
                              for name, planes in out.items()})
 
-    def run_batched(self, host_values_list) -> List[Dict[str, object]]:
+    def run_batched(self, host_values_list,
+                    mesh=None) -> List[Dict[str, object]]:
         """Execute the program over a BATCH of valuations in one pass.
 
         Each cipher input is stacked along a leading batch axis
@@ -1239,23 +1671,77 @@ class TorchProgram:
         the same host object in every valuation) are uploaded once and
         broadcast, not stacked B times. On a CUDA device each batch size
         has its own captured graph. Port of
-        executor_jax.JaxProgram.run_batched without the mesh branches."""
+        executor_jax.JaxProgram.run_batched.
+
+        With a mesh (a DeviceMesh of eva_tpu_torch.parallel; every rank
+        calls with the same global list), the batch is sharded over the
+        mesh's batch axes: each rank runs its slice, padded with copies
+        of the last element when the batch does not divide, and the
+        outputs are gathered, so every rank returns the whole list (see
+        _run_mesh)."""
         batch = len(host_values_list)
         if batch == 0:
             return []
+        if mesh is not None:
+            return self._run_mesh(host_values_list, mesh)
         cipher, plain, consts = self._split(host_values_list, True)
         if self._captures():
             host, done = self._replay(cipher, plain, consts)
             done.synchronize()
         else:
-            device = self.device
-            out = self._traced(
-                {k: [_to_dev(a, device) for a in planes]
-                 for k, planes in cipher.items()},
-                {**{k: _to_dev(a, device) for k, a in plain.items()},
-                 **{k: self._upload_plain(pt) for k, pt in consts.items()}})
+            out = self._traced(*self._dev_inputs(cipher, plain, consts))
             host = {name: [c.cpu() for c in planes]
                     for name, planes in out.items()}
+        return [self._result(host, b) for b in range(batch)]
+
+    def _run_mesh(self, host_values_list, mesh) -> List[Dict[str, object]]:
+        """run_batched on a mesh. This rank takes its batch slice (the
+        batch axes flattened, "host" major), its digit shard (limb,
+        hlimb) and its ring slice (seq); runs the program (_sharded:
+        the single-device program on the local batch, through its
+        captured graph on the card, or the digit-parallel / seq program
+        eagerly); then all-gathers the outputs over "seq" and over the
+        batch axes. Plaintexts that are the same object in every element
+        of the whole list serve every rank unstacked, as in JAX."""
+        from torch.distributed.device_mesh import DeviceMesh
+
+        from ..parallel.sharding import (axis_group, axis_size, batch_axes,
+                                         batch_shard)
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(
+                "run_batched: mesh must be a torch.distributed DeviceMesh "
+                "(eva_tpu_torch.parallel.make_device_mesh), not "
+                f"{type(mesh).__name__}")
+        batch = len(host_values_list)
+        n_shards, shard = batch_shard(mesh)
+        padded = (list(host_values_list)
+                  + [host_values_list[-1]] * (-batch % n_shards))
+        loc = len(padded) // n_shards
+        shared = {idx for idx, v in padded[0].items()
+                  if isinstance(v, Plaintext)
+                  and all(hv[idx] is v for hv in padded)}
+        cipher, plain, consts = self._split(
+            padded[shard * loc:(shard + 1) * loc], True, shared)
+        run = self._sharded(mesh, cipher, plain, consts)
+        seq = axis_group(mesh, "seq") if axis_size(mesh, "seq") > 1 else None
+        if run is None and self._captures():
+            out = self._replay_dev(cipher, plain, consts)
+        else:
+            inputs = self._dev_inputs(cipher, plain, consts, seq)
+            out = (run or self._traced)(*inputs)
+        axes = batch_axes(mesh)
+        axes = axes if isinstance(axes, tuple) else (axes,)
+        plane_dims = 2 if self.k == 1 else 3
+        host = {}
+        for name, planes in out.items():
+            host[name] = []
+            for c in planes:
+                if seq is not None:
+                    c = _all_gather_cat(c, seq, -1)
+                if c.dim() > plane_dims:  # batched (see _result)
+                    for ax in reversed(axes):  # "batch", then "host"
+                        c = _all_gather_cat(c, axis_group(mesh, ax), 0)
+                host[name].append(c.cpu())
         return [self._result(host, b) for b in range(batch)]
 
     def run_pipelined(self, host_values_iter, depth: int = 2):
@@ -1295,6 +1781,14 @@ class TorchProgram:
                 yield collect(pending.popleft())
         while pending:
             yield collect(pending.popleft())
+
+
+def _all_gather_cat(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The ranks' `x` of `group`, concatenated along `dim` in rank
+    order, on every rank."""
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
 
 
 def _copy_out(out):

@@ -1,0 +1,200 @@
+"""Digit-parallel key switching: the gadget digits sharded over a mesh
+axis, the partial inner products summed by a modular all-reduce.
+
+Port of eva_tpu/parallel/ks_shard.py (`_modular_all_reduce`,
+`modular_reduce_scatter`, `modular_all_gather`,
+`hierarchical_modular_all_reduce`, `ShardedKeySwitch`). The JAX
+package's collectives are `jax.lax` ones inside `shard_map` over a mesh
+axis name; here they are torch.distributed collectives over a process
+group (a DeviceMesh axis's group: NCCL on the card, gloo on the CPU).
+
+Each digit needs a fast base extension, n_ext limb NTTs and a
+multiply-accumulate against its key slice; the digits are independent
+until the final accumulation, a modular sum over digits.
+
+The modular all-reduce: residues are int64 below 2^31, so the plain
+integer SUM of one plane per rank is below 2^63 for any world below
+2^32, and reducing it mod q gives the modular sum exactly. A modular
+sum is unique, so this equals the JAX package's butterfly of ppermutes
+and add_mods (which must avoid a raw 32-bit psum, since that wraps mod
+2^32) bit for bit. The reduce-scatter keeps JAX's form: one
+all_to_all_single and local modular adds.
+
+The post-accumulation tail (extended-basis iNTT, division by P, final
+NTT) runs replicated on every rank. The NTTs are the port's
+DeviceLevelOps transforms: the CUDA kernels K1/K2 on the card."""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..backend.executor_torch import (DeviceKeys, _ks_dev_tables,
+                                      _ks_dp_tables)
+from ..backend.ks import divide_last_planes
+from ..backend.modmath import add_mod
+from ..backend.tables import level_ops
+from ..crypto.context import CKKSContext
+from ..crypto.keys import KSwitchKey
+from .sharding import axis_group, axis_index, axis_size, mesh_device
+
+
+def _modular_all_reduce(x: torch.Tensor, q, group) -> torch.Tensor:
+    """Modular sum of `x` over the ranks of `group`, on every rank:
+    an int64 SUM all-reduce of residues below 2^31, then mod q ([n_sub,
+    1] per-row moduli)."""
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    return out % q
+
+
+def modular_reduce_scatter(x: torch.Tensor, q, group) -> torch.Tensor:
+    """Modular reduce-scatter along the LAST (ring) axis: rank i of
+    `group` ends with the i-th N/n_dev chunk of the modular sum over the
+    group. One all-to-all (each rank keeps 1/n_dev, sends the rest) and
+    n_dev - 1 local modular adds."""
+    n_dev = dist.get_world_size(group)
+    n_last = x.shape[-1]
+    if n_last % n_dev:
+        raise ValueError(f"ring axis {n_last} does not split over "
+                         f"{n_dev} ranks")
+    parts = x.reshape(x.shape[:-1] + (n_dev, n_last // n_dev))
+    parts = parts.movedim(-2, 0).contiguous()  # [n_dev, ..., N/n_dev]
+    recv = torch.empty_like(parts)
+    dist.all_to_all_single(recv, parts, group=group)
+    acc = recv[0]
+    for j in range(1, n_dev):
+        acc = add_mod(acc, recv[j], q)
+    return acc
+
+
+def modular_all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """Inverse of the scatter: the full ring axis from the per-rank
+    chunks (chunk order == rank order in `group`)."""
+    n_dev = dist.get_world_size(group)
+    parts = [torch.empty_like(x) for _ in range(n_dev)]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.stack(parts, dim=-2).reshape(
+        x.shape[:-1] + (n_dev * x.shape[-1],))
+
+
+def hierarchical_modular_all_reduce(x: torch.Tensor, q, ici_group,
+                                    dcn_group) -> torch.Tensor:
+    """Two-level modular all-reduce for accumulators sharded over an
+    intra-node axis (ici_group, NVLink) x a cross-node axis (dcn_group):
+
+      1. modular reduce-scatter over the intra-node axis (L ranks),
+      2. modular all-reduce of the 1/L chunk over the cross-node axis,
+      3. all-gather over the intra-node axis,
+
+    so the cross-node hop carries 1/L of the plane bytes. Exact: modular
+    adds are associative and commutative, so the grouping is
+    bit-identical to a flat all-reduce."""
+    n_ici = dist.get_world_size(ici_group)
+    n_dcn = dist.get_world_size(dcn_group)
+    if n_ici == 1:
+        return _modular_all_reduce(x, q, dcn_group)
+    if n_dcn == 1:
+        return _modular_all_reduce(x, q, ici_group)
+    chunk = modular_reduce_scatter(x, q, ici_group)
+    chunk = _modular_all_reduce(chunk, q, dcn_group)
+    return modular_all_gather(chunk, ici_group)
+
+
+class ShardedKeySwitch:
+    """One (context, level, key, mesh axis) digit-parallel plan.
+
+    Every rank of `mesh` holds the padded base-extension constants and
+    key slices of its own digits (the digit axis zero-padded to a
+    multiple of the axis size; padded digits have zero conversion rows
+    and zero keys, so they add exact zeros). `__call__` runs the whole
+    key switch on NTT-domain input planes and returns NTT-domain
+    (d0, d1) at the same level on every rank, equal to the
+    single-device crypto/ops._key_switch output."""
+
+    def __init__(self, ctx: CKKSContext, ksk: KSwitchKey, level: int,
+                 mesh, axis: str = "digit"):
+        self.ctx = ctx
+        self.level = level
+        self.mesh = mesh
+        self.axis = axis
+        self.group = axis_group(mesh, axis)
+        if self.group is None:
+            raise ValueError(f"mesh has no axis {axis!r}")
+        n_dev = axis_size(mesh, axis)
+        self.n_dev = n_dev
+        self.device = device = mesh_device(mesh)
+        primes = ctx.primes_at_level(level)
+        basis = primes + ctx.key_primes
+        self.primes = primes
+        self.basis = basis
+        # The executor's digit-parallel tables and key layout (the
+        # digit axis padded to a multiple of n_dev), this rank's shard.
+        n_groups, inv_mont, _ = _ks_dev_tables(ctx, level, ksk.alpha)
+        member, conv_m = _ks_dp_tables(ctx, level, ksk.alpha, n_dev)
+        self.n_groups = n_groups
+        self.n_dig = member.shape[0]
+        self.n_pad = self.n_dig - n_groups
+        loc = self.n_dig // n_dev
+        shard = axis_index(mesh, axis)
+        mine = slice(shard * loc, (shard + 1) * loc)
+
+        def up(arr):
+            return torch.from_numpy(
+                np.ascontiguousarray(arr).astype(np.int64)).to(device)
+
+        self.inv_mont = up(inv_mont)  # replicated: y on every rank
+        self.member = up(member[mine])
+        self.conv_m = up(conv_m[mine])
+        self.k0, self.k1 = DeviceKeys(ctx, None, device).dp_layout(
+            ksk, level, n_dev, shard)
+
+        self.dev = level_ops(primes, ctx.n, device)
+        self.ext = level_ops(basis, ctx.n, device)
+
+    def _tail(self, acc):
+        """Replicated post-accumulation: iNTT, divide by P, final NTT."""
+        ctx = self.ctx
+        x = self.ext.intt(acc)
+        prim = list(self.basis)
+        for _ in ctx.key_primes:
+            x = divide_last_planes(x, prim,
+                                   level_ops(prim[:-1], ctx.n, self.device))
+            prim = prim[:-1]
+        return level_ops(prim, ctx.n, self.device).ntt(x)
+
+    def __call__(self, poly) -> Tuple[torch.Tensor, torch.Tensor]:
+        """poly: [n_cur, N] NTT-domain residues (numpy or tensor; the
+        same on every rank). Returns (d0, d1) NTT-domain planes at the
+        same level, on this rank's device."""
+        ctx, dev, ext = self.ctx, self.dev, self.ext
+        if isinstance(poly, np.ndarray):
+            poly = torch.from_numpy(poly.astype(np.int64))
+        poly = poly.to(self.device, torch.int64)
+        n_ext = len(self.basis)
+        y = dev.mul_mont(dev.intt(poly), self.inv_mont)  # [n_cur, N]
+        # Local digits: gather member rows, base-extend, sum members.
+        loc, alpha = self.member.shape
+        ym = torch.index_select(y, 0, self.member.reshape(-1))
+        ym = ym.reshape(loc, alpha, 1, ctx.n)
+        prod = ext.mul_mont(ym.expand(loc, alpha, n_ext, ctx.n),
+                            self.conv_m)
+        acc = prod[:, 0]
+        for k in range(1, alpha):
+            acc = ext.add(acc, prod[:, k])
+        d = ext.ntt(acc)                              # [loc, n_ext, N]
+
+        def digit_sum(t):
+            s = t[0]
+            for j in range(1, t.shape[0]):
+                s = ext.add(s, t[j])
+            return s
+
+        a0 = _modular_all_reduce(digit_sum(ext.mul_mont(d, self.k0)),
+                                 ext.q, self.group)
+        a1 = _modular_all_reduce(digit_sum(ext.mul_mont(d, self.k1)),
+                                 ext.q, self.group)
+        return self._tail(a0), self._tail(a1)

@@ -1,18 +1,22 @@
 """Per-primitive profiling against the memory-bandwidth speed-of-light
 model, on the CUDA device.
 
-Port of the single-device part of eva_tpu/profiling.py. Run on the card:
+Port of eva_tpu/profiling.py. Run on the card:
 
     python -m eva_tpu_torch.profiling [N] [L]        # profile()
     python -m eva_tpu_torch.profiling estimate [sobel|harris|poly]
+    python -m eva_tpu_torch.profiling mesh [sobel|harris|poly] [cards]
 
 Times each ciphertext primitive of the port (the elementwise int64
 modular ops in PyTorch, the CUDA NTT kernels K1/K2, the automorphism
 gather, the rescale, and a full rotation through the fused key-switch
 kernels K4/K5) with the chained-dependency + host-read slope method and
 reports achieved bytes/s against the card's HBM roofline, measured in
-the same process with a large elementwise pass. Both raise without a
-CUDA device. `estimate_program` is host-only.
+the same process with a large elementwise pass. `mesh` prints
+recommend_mesh's meshes for a program on that many cards beside the
+collective constants (COLLECTIVE_CONSTANTS) and the measured one-rank
+NCCL overhead. All three raise without a CUDA device;
+`estimate_program` and `recommend_mesh` are host-only.
 
 Byte counts are the port's: residues live on the device as int64, so a
 residue moves RESIDUE_BYTES = 8 bytes (the JAX package counts 4 for its
@@ -356,6 +360,185 @@ def estimate_program(compiled, params, *,
     return totals, total
 
 
+# Collective-model constants with provenance. Overridable per call;
+# mesh_main prints this table and the one-card measurement next to every
+# recommendation. Neither is measurable on a machine with one card.
+COLLECTIVE_CONSTANTS = {
+    "nvlink_gbs": (450.0, "vendor", "NVIDIA H100 SXM data sheet: NVLink 4, "
+                   "900 GB/s per card to the other cards of its node, "
+                   "450 GB/s each way"),
+    "coll_lat_us": (10.0, "default", "launch and synchronisation of one "
+                    "NCCL collective between the cards of one NVLink node, "
+                    "an order of magnitude, not measured; the one-card "
+                    "probe (measure_collective_overhead_us) bounds only "
+                    "the one-rank form"),
+}
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def measure_collective_overhead_us(device=None, reps: int = 200) -> float:
+    """One-card proxy for a collective's fixed cost: the extra device time
+    of an NCCL all-reduce over a one-rank world, per call, against the
+    same body without it (a 4 MB float32 multiply), each timed with CUDA
+    events over `reps` chained calls. Uses the default process group
+    when one is initialised (it must have one rank), else makes one over
+    localhost and destroys it after. CAVEAT, printed with the result:
+    NCCL's one-rank all-reduce is at most a copy, so this bounds the
+    framework's overhead, not the launch and synchronisation between
+    cards; the model keeps the stated default for that. Raises without a
+    CUDA device."""
+    import torch
+    import torch.distributed as dist
+    from .backend import resolve_device
+
+    device = resolve_device(device)
+    if device.type != "cuda":
+        raise RuntimeError("measure_collective_overhead_us: needs a CUDA "
+                           "device")
+    own = not dist.is_initialized()
+    if own:
+        dist.init_process_group(
+            "nccl", init_method=f"tcp://localhost:{_free_port()}",
+            world_size=1, rank=0, device_id=device)
+    try:
+        if dist.get_world_size() != 1 or "nccl" not in str(
+                dist.get_backend()):
+            raise RuntimeError("measure_collective_overhead_us: needs a "
+                               "one-rank NCCL world")
+        x = torch.ones(1 << 20, dtype=torch.float32, device=device)
+
+        def coll(v):
+            v = v * 1.0000001
+            dist.all_reduce(v)
+            return v
+
+        def plain(v):
+            return v * 1.0000001
+
+        def per_call_us(fn):
+            cur = x
+            for _ in range(10):
+                cur = fn(cur)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                cur = fn(cur)
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) * 1e3 / reps
+
+        return max(per_call_us(coll) - per_call_us(plain), 0.0)
+    finally:
+        if own:
+            dist.destroy_process_group()
+
+
+def recommend_mesh(compiled, params, n_devices: int, *,
+                   nvlink_gbs: float = None, coll_lat_us: float = None,
+                   throughput: bool = False):
+    """Recommend a mesh shape for `compiled` on `n_devices` cards from the
+    roofline cost model (eva_tpu.profiling.recommend_mesh's model, over
+    the port's estimate_program and residue width).
+
+    Latency model per single execution on a candidate {batch, limb, seq}
+    split (collectives over NVLink at nvlink_gbs, coll_lat_us each; the
+    per-card compute terms come from estimate_program's resource
+    decomposition):
+
+      limb L : digit-stage NTT rows / L  + modular all-reduce of the two
+               accumulators per key switch (2(L-1)/L of the plane
+               bytes) — everything else replicated
+      seq  S : ALL rows and elementwise bytes / S + one all-to-all per
+               transform ((S-1)/S of the local plane) + a shard exchange
+               per rotation
+      batch B: does not change single-execution latency; multiplies
+               throughput by B (no per-op collectives)
+
+    Returns (best, table): best = {"batch": B, "limb": L, "seq": S},
+    table = [(shape, predicted seconds per execution, executions per
+    second)] sorted by the objective: latency (ties toward more batch),
+    or with throughput=True executions per second.
+
+    nvlink_gbs / coll_lat_us default to COLLECTIVE_CONSTANTS (their
+    provenance printed by mesh_main)."""
+    from .parallel.seq_exec import seq_compatible
+
+    if nvlink_gbs is None:
+        nvlink_gbs = COLLECTIVE_CONSTANTS["nvlink_gbs"][0]
+    if coll_lat_us is None:
+        coll_lat_us = COLLECTIVE_CONSTANTS["coll_lat_us"][0]
+    _, t1, res = estimate_program(compiled, params, return_resources=True)
+    n = res["n"]
+    row_ntt, row_perm = res["row_ntt_s"], res["row_perm_s"]
+    link = nvlink_gbs * 1e9
+    plane = n * RESIDUE_BYTES  # bytes per row
+
+    def predict(limb, seq):
+        ntt_d, ntt_o = res["ntt_rows_digit"], res["ntt_rows_other"]
+        perm, ew_r = res["perm_rows"], res["ew_rows"]
+        comp = (ntt_d * row_ntt / limb
+                + (ntt_o * row_ntt + ew_r * plane / res["hbm_bw"]
+                   + perm * row_perm) / seq)
+        coll = 0.0
+        if limb > 1:
+            coll += (res["ks_reduce_rows"] * plane / seq
+                     * 2 * (limb - 1) / limb) / link
+            coll += res["ks_sites"] * np.log2(limb) * coll_lat_us * 1e-6
+        if seq > 1:
+            a2a_rows = (ntt_d / limb + ntt_o + perm)
+            coll += (a2a_rows * plane / seq * (seq - 1) / seq) / link
+            coll += res["transforms"] * coll_lat_us * 1e-6
+        return comp + coll
+
+    table = []
+    for limb in [x for x in (1, 2, 4, 8, 16) if x <= n_devices]:
+        for seq in [x for x in (1, 2, 4, 8) if limb * x <= n_devices]:
+            if seq > 1 and not seq_compatible(n, seq):
+                continue
+            if limb > 1 and not res["ks_sites"]:
+                continue
+            batch = n_devices // (limb * seq)
+            t = predict(limb, seq)
+            table.append(({"batch": batch, "limb": limb, "seq": seq},
+                          t, batch / t))
+    if throughput:
+        table.sort(key=lambda r: -r[2])
+    else:
+        table.sort(key=lambda r: (r[1], -r[0]["batch"]))
+    return table[0][0], table
+
+
+def mesh_main(which: str, n_devices: int):
+    """Print the collective constants, the one-card collective overhead
+    and the recommended meshes of program `which` on n_devices cards."""
+    from .ckks import CKKSCompiler
+
+    compiled, params, _ = CKKSCompiler(
+        {"warn_vec_size": "false"}).compile(PROGRAMS[which]())
+    print("collective-model constants:")
+    for key, (val, kind, why) in COLLECTIVE_CONSTANTS.items():
+        print(f"  {key} = {val} [{kind}] — {why}")
+    lat = measure_collective_overhead_us()
+    print(f"  measured one-rank NCCL all-reduce overhead: {lat:.2f} us "
+          f"(lower bound on framework cost; the cost between cards needs "
+          f"more than one card)")
+    for objective in (False, True):
+        best, table = recommend_mesh(compiled, params, n_devices,
+                                     throughput=objective)
+        name = "throughput" if objective else "latency"
+        print(f"objective={name}: recommend {best}")
+        for shape, t, thr in table[:6]:
+            print(f"  {shape}  {t*1e3:8.3f} ms/exec  {thr:8.1f} exec/s")
+    return lat
+
+
 def build_sobel(h=90, w=90):
     """The reference benchmark workload (examples/image_processing.py):
     2x 3x3 convolutions + cubic polynomial on the squared gradient
@@ -460,6 +643,10 @@ def main():
     device = resolve_device(None)  # the CUDA device; raises without one
     if len(sys.argv) > 1 and sys.argv[1] == "estimate":
         estimate_main(sys.argv[2] if len(sys.argv) > 2 else "sobel")
+        return
+    if len(sys.argv) > 1 and sys.argv[1] == "mesh":
+        mesh_main(sys.argv[2] if len(sys.argv) > 2 else "sobel",
+                  int(sys.argv[3]) if len(sys.argv) > 3 else 8)
         return
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 16384
     levels = int(sys.argv[2]) if len(sys.argv) > 2 else 6

@@ -148,8 +148,10 @@ class EVAPublic:
         leading batch axis, so each kernel launch covers the batch.
         Returns one valuation per input, each bit-identical to its own
         `execute`. On the CUDA device each batch size has its own
-        captured graph. `mesh` (multi-device) is not ported and raises
-        NotImplementedError."""
+        captured graph. With a `mesh` (eva_tpu_torch.parallel.
+        make_device_mesh, one process per device), every rank calls with
+        the same list, runs its shard (batch slice, key-switch digits,
+        ring slice) and returns every valuation."""
         for v in inputs_list:
             _check_params(self.params, v, "EVAPublic.execute_batch")
         results = self._executor_for(program).run_batch(inputs_list, mesh=mesh)

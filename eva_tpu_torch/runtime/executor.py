@@ -369,15 +369,13 @@ class Executor:
         """Execute over a batch of valuations (torch backend only):
         host-phase each element, then one device pass over the stacked
         batch (one replay of the batch size's captured graph on the CUDA
-        device). `mesh` (multi-device batch sharding) is not ported."""
+        device). With a mesh (eva_tpu_torch.parallel.make_device_mesh),
+        every rank calls with the same list, runs its shard and returns
+        the whole list (TorchProgram.run_batched)."""
         self._require_torch("batched execution")
-        if mesh is not None:
-            raise NotImplementedError(
-                "run_batch(mesh=...): multi-device execution is not ported "
-                "to eva_tpu_torch yet (ROADMAP Queue 1, multi-device)")
         pairs = [self._host_phase(inputs) for inputs in inputs_list]
         results = self._get_torch_program().run_batched(
-            [p[0] for p in pairs])
+            [p[0] for p in pairs], mesh=mesh)
         for b, (_, raw_vals) in enumerate(pairs):
             for name, t in self.program.outputs.items():
                 if self.types[t] == Type.Raw:

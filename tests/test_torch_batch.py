@@ -64,7 +64,7 @@ def test_execute_pipelined_matches_execute_and_numpy(served):
 
 def test_batch_refuses_a_mesh_and_the_numpy_backend(served):
     pub, ct, vals, _, _ = served
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         pub.execute_batch(ct, vals[:2], mesh=object())
     host = EVAPublic(pub.ctx, pub._keys, pub.params, backend="numpy")
     with pytest.raises(ValueError, match="torch backend"):

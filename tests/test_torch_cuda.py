@@ -349,3 +349,102 @@ def test_cuda_generate_keys_runs_the_engine_without_fallback(cuda,
     monkeypatch.setattr(DeviceKeygen, "_compute", broken)
     with pytest.raises(RuntimeError, match="engine failed"):
         generate_keys(params)
+
+
+# -- multi-device execution at world size 1 over NCCL ------------------------
+# The machine with the card has one card: a world of one rank, NCCL.
+
+
+@pytest.fixture(scope="module")
+def nccl_world():
+    """A one-rank NCCL world on the current card (the default process
+    group), destroyed after the module's tests."""
+    import torch.distributed as dist
+    from eva_tpu_torch.profiling import _free_port
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (NCCL has no CPU mode)")
+    device = torch.device("cuda", torch.cuda.current_device())
+    own = not dist.is_initialized()
+    if own:
+        dist.init_process_group(
+            "nccl", init_method=f"tcp://localhost:{_free_port()}",
+            world_size=1, rank=0, device_id=device)
+    yield device
+    if own:
+        dist.destroy_process_group()
+
+
+def test_cuda_execute_batch_on_a_one_rank_mesh_equals_no_mesh(nccl_world):
+    """execute_batch on a (batch 1, limb 1) NCCL mesh runs the captured
+    single-device program on the whole batch (K1, K2, K4, K5; no plain
+    version) and returns what the same call without a mesh returns."""
+    from eva_tpu_torch import EvaProgram, Input, Output
+    from eva_tpu_torch.ckks import CKKSCompiler
+    from eva_tpu_torch.parallel import make_device_mesh
+    from eva_tpu_torch.runtime import generate_keys
+    from eva_tpu_torch.backend import tables
+
+    prog = EvaProgram("dp", vec_size=16)
+    with prog:
+        x = Input("x")
+        Output("y", 3 * x ** 2 + (x << 1) + (x << 3) - 2)
+    prog.set_output_ranges(20)
+    prog.set_input_scales(30)
+    compiled, params, sig = CKKSCompiler(
+        {"warn_vec_size": "false"}).compile(prog)
+    pub, _ = generate_keys(params)
+    rng = np.random.default_rng(7)
+    encs = [pub.encrypt({"x": rng.uniform(-1, 1, 16).tolist()}, sig)
+            for _ in range(3)]
+    want = pub.execute_batch(compiled, encs)
+    mesh = make_device_mesh(1)
+    assert tuple(mesh.shape) == (1, 1)
+    plain = {**tables.PLAIN_CALLS, **ks.PLAIN_CALLS}
+    launches = {**ntt_cuda.LAUNCHES, **ks_cuda.LAUNCHES}
+    got = pub.execute_batch(compiled, encs, mesh=mesh)
+    assert {**tables.PLAIN_CALLS, **ks.PLAIN_CALLS} == plain
+    after = {**ntt_cuda.LAUNCHES, **ks_cuda.LAUNCHES}
+    assert all(after[k] > v for k, v in launches.items()), (launches, after)
+    tp = pub._executor_for(compiled)._get_torch_program()
+    assert [v[1] for v in tp._sharded_cache.values()] == ["batch"]
+    for a, b in zip(want, got):
+        for name in a:
+            for pa, pb in zip(a[name].polys, b[name].polys):
+                np.testing.assert_array_equal(pa, pb)
+
+
+def test_cuda_sharded_key_switch_one_shard_equals_host(nccl_world):
+    """ShardedKeySwitch on a one-rank "digit" axis (its all-reduce over
+    NCCL) equals the host key switch crypto/ops._key_switch."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from eva_tpu_torch.crypto import keys as K, ops as O
+    from eva_tpu_torch.parallel import ShardedKeySwitch
+
+    ctx = get_context((60, 20, 60, 60, 60, 60, 60), (1,), 16384)
+    keys = K.generate_keys(ctx, alpha=2)
+    mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("digit",))
+    for level in (0, 2):
+        primes = ctx.primes_at_level(level)
+        poly = _planes(level, primes, (ctx.n,)).numpy().astype(np.uint64)
+        want = O._key_switch(ctx, poly, level, keys.relin)
+        got = ShardedKeySwitch(ctx, keys.relin, level, mesh)(poly)
+        for w, g in zip(want, got):
+            assert g.is_cuda
+            np.testing.assert_array_equal(w, g.cpu().numpy())
+
+
+def test_cuda_sharded_ntt_one_shard_equals_ntt(nccl_world):
+    """ShardedNTT on a one-rank group (its all-to-alls over NCCL) at
+    [11, 16384] equals K1 and round-trips through its inverse."""
+    import torch.distributed as dist
+    from eva_tpu_torch.parallel import get_sharded_ntt
+
+    n = 16384
+    primes = [q for e in build_chain([60, 20, 60, 60, 60, 60, 60], n)
+              for q in e.primes][:11]
+    x = _planes(11, primes, (n,)).to(nccl_world)
+    sntt = get_sharded_ntt(tuple(primes), n, dist.group.WORLD, nccl_world)
+    got = sntt.ntt(x.reshape(11, sntt.n1, sntt.n2)).reshape(11, n)
+    assert torch.equal(got, DeviceLevelOps(primes, n, nccl_world).ntt(x))
+    back = sntt.intt(got.reshape(11, sntt.n1, sntt.n2)).reshape(11, n)
+    assert torch.equal(back, x)

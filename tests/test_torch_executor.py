@@ -22,14 +22,11 @@ import torch
 
 import eva_tpu
 import eva_tpu_torch
+import torch_mesh_ranks as R
 from eva_tpu.ckks import CKKSCompiler as CompilerJ
-from eva_tpu.crypto.ciphertext import Ciphertext as CtJ
-from eva_tpu.crypto.ciphertext import Plaintext as PtJ
 from eva_tpu.runtime import Executor as ExecutorJ
 from eva_tpu.runtime import generate_keys as keygen_j
-from eva_tpu_torch import convert
 from eva_tpu_torch.ckks import CKKSCompiler as CompilerT
-from eva_tpu_torch.crypto.context import get_context
 from eva_tpu_torch.runtime import Executor as ExecutorT
 
 # Small tensors: one intra-op thread per test worker avoids
@@ -121,34 +118,14 @@ def _compile_both(name):
 
 
 def carry_keys(params, ks):
-    """The port's KeySet holding eva_tpu's key material."""
-    ctx = get_context(tuple(params.prime_bits), tuple(params.rotations),
-                      params.poly_modulus_degree, params.key_terms)
-
-    def kd(k):
-        return dict(k0=k.k0, k1=k.k1, alpha=k.alpha, k1_seeds=k.k1_seeds,
-                    xof=k.xof)
-
-    return ctx, convert.keyset_from_numpy(
-        ctx, ks.secret.coeffs, ks.public.b, ks.public.a,
-        relin=None if ks.relin is None else kd(ks.relin),
-        galois={g: kd(k) for g, k in ks.galois.items()},
-        secret_s=ks.secret.s, public_seed=ks.public.a_seed,
-        public_xof=ks.public.xof)
+    """The port's context and KeySet holding eva_tpu's key material."""
+    return R.port_keys(R.keys_payload(params, ks))
 
 
 def carry_values(values):
-    out = {}
-    for name, v in values.items():
-        if isinstance(v, CtJ):
-            out[name] = convert.ciphertext_from_numpy(
-                v.polys, v.level, v.scale, v.seed, v.seed_xof)
-        elif isinstance(v, PtJ):
-            out[name] = convert.plaintext_from_numpy(v.poly, v.level,
-                                                     v.scale, v.ext)
-        else:
-            out[name] = np.asarray(v)
-    return out
+    """The port's valuation holding eva_tpu's ciphertexts, plaintexts and
+    raw values."""
+    return R.port_values(R.values_payload(values))
 
 
 def _assert_same(out_ref, out_port):
@@ -232,7 +209,7 @@ def test_polynomial_round_trip_with_port_keygen():
     assert valuation_mse(sec.decrypt(out, sig), ref) < 0.01
     host = EVAPublic(pub.ctx, pub._keys, params, backend="numpy")
     _assert_same(host.execute(compiled, enc), out)
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         pub.execute_batch(compiled, [enc], mesh=object())
 
 
@@ -277,7 +254,7 @@ def test_import_pulls_in_neither_jax_nor_eva_tpu():
             "eva_tpu_torch.convert, eva_tpu_torch.backend.executor_torch, "
             "eva_tpu_torch.backend.keygen, eva_tpu_torch.profiling, "
             "eva_tpu_torch.runtime.noise, eva_tpu_torch.std.numeric, "
-            "eva_tpu_torch.serialization; "
+            "eva_tpu_torch.serialization, eva_tpu_torch.parallel; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'eva_tpu' or "
             "m.startswith('eva_tpu.')]; print(bad); sys.exit(bool(bad))")

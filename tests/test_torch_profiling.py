@@ -113,12 +113,48 @@ def test_profile_runs_on_the_cpu_device():
 
 def test_card_entry_points_raise_without_a_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for argv in (["profiling"], ["profiling", "estimate", "sobel"]):
+    for argv in (["profiling"], ["profiling", "estimate", "sobel"],
+                 ["profiling", "mesh", "sobel", "8"]):
         monkeypatch.setattr("sys.argv", argv)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             P.main()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         P.measure_hbm_roofline()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        P.measure_collective_overhead_us()
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        P.measure_collective_overhead_us("cpu")
+
+
+@pytest.mark.parametrize("throughput", [False, True])
+def test_recommend_mesh_equals_the_jax_model(compiled, monkeypatch,
+                                             throughput):
+    """The same model: with the same calibration, residue width and
+    link constants, the same candidate table in the same order."""
+    import functools
+    monkeypatch.setattr(P, "RESIDUE_BYTES", 4)
+    for mod in (P, PJ):
+        monkeypatch.setattr(mod, "estimate_program", functools.partial(
+            mod.estimate_program, **CALIB))
+    best, table = P.recommend_mesh(*compiled["eva_tpu_torch"], 8,
+                                   nvlink_gbs=45.0, coll_lat_us=3.0,
+                                   throughput=throughput)
+    best_j, table_j = PJ.recommend_mesh(*compiled["eva_tpu"], 8,
+                                        ici_gbs=45.0, coll_lat_us=3.0,
+                                        throughput=throughput)
+    assert best == best_j
+    assert [(s, pytest.approx(t, rel=1e-12)) for s, t, _ in table] == \
+        [(s, t) for s, t, _ in table_j]
+
+
+def test_collective_constants_are_the_h100s():
+    """Provenance: NVLink 4 of the H100 data sheet, a stated default for
+    the launch latency; no TPU figure."""
+    assert P.COLLECTIVE_CONSTANTS["nvlink_gbs"][:2] == (450.0, "vendor")
+    assert "H100" in P.COLLECTIVE_CONSTANTS["nvlink_gbs"][2]
+    assert P.COLLECTIVE_CONSTANTS["coll_lat_us"][1] == "default"
+    assert not any("TPU" in why or "ICI" in why
+                   for _, _, why in P.COLLECTIVE_CONSTANTS.values())
 
 
 def test_estimate_main_prints_the_table(capsys):
