@@ -8,10 +8,11 @@ Run from the root of a checkout, with no arguments:
 Phases (any failure exits non-zero and prints no result line):
   1. Card: print the card's name and power limit, build the CUDA kernel
      libraries from eva_tpu_torch/csrc with nvcc (sm_90a), one nvcc per
-     source, all started together.
+     source (ntt.cu, ks.cu, modmath.cu), all started together.
   2. Kernels: each kernel against its plain PyTorch version on the card,
-     on random reduced residues from a fixed seed; equality by
-     torch.equal (exact modular arithmetic: the tolerance is zero).
+     on random reduced residues from a fixed seed (int32 tensors of
+     uint32 bits); equality by torch.equal (exact modular arithmetic:
+     the tolerance is zero).
      NTT: at NTT_SHAPES, the main path's shapes at N = 16384 ([11],
      [13], [2] and [4, 13] rows: Sobel's level 0 at batch 1, data plus
      key primes, a deep level, a batch of 4; [6, 13] and [4, 10]:
@@ -27,8 +28,14 @@ Phases (any failure exits non-zero and prints no result line):
      walks two digits), Sobel's deepest level (one group), a context
      with one key prime, and Sobel's level 0 at N = 1024 and 32768.
      The key-switch kernels' registers, spill bytes and the clusters the
-     card holds at once are printed first. Device times by CUDA events
-     around CUDA-graph replays; eager per-call times beside them.
+     card holds at once are printed first. Elementwise kernels
+     (modmath_kernel_phase): E1 (every op: add, sub, neg, mul_mont, mul,
+     shoup; the second operand full, a plaintext shared by the batch, a
+     per-row constant; an unreduced first operand for the multiplies),
+     E2 (the tensor product) and E3 (the divide-last) at Sobel's level 0
+     (B = 1 and 4) and Harris's, with their registers and spills. Device
+     times by CUDA events around CUDA-graph replays; eager per-call times
+     beside them; a bound for each timed shape.
   3. Keygen: the key-switching-key arithmetic (DeviceKeygen, K1 at
      [groups, n_all, N]) against the host loop on seeded randomness at
      Sobel's and Harris's contexts, byte-identical, ms per key each way;
@@ -41,9 +48,12 @@ Phases (any failure exits non-zero and prints no result line):
      graph: its first call warms up eagerly, captures and replays, every
      later call replays. The output ciphertexts must be bit-identical to
      the port's numpy backend on the same keys and inputs, the
-     decryption must match the plaintext reference, and every kernel of
-     the path must have been launched (launch counts > 0, plain-version
-     calls == 0; a replay adds the launches its capture counted).
+     decryption must match the plaintext reference, every output plane
+     of the graph must be int32, and every kernel of the path must have
+     been launched (K1, K2, K4, K5, E1, E2, E3: launch counts > 0;
+     plain-version calls of every kernel, modmath's included, == 0; a
+     replay adds the launches its capture counted; keygen: one K1 and
+     five E1 launches per key).
      `execute` is timed as the median of 5 warm runs; one more execute
      counts the NTT launches by row count. Then, for each program, the
      captured execute against the eager one (the private switch
@@ -73,9 +83,9 @@ Phases (any failure exits non-zero and prints no result line):
      eva_tpu_torch.profiling: the measured HBM roofline, profile()'s
      table and calibration, and estimate_program for each program beside
      its captured execute and device busy time.
-  4. One JSON line of kernel numbers (keygen's K1 launches under
-     `launches_keygen`, the mesh phase's under launches_by_path
-     "sobel_mesh"), then the device line last.
+  4. One JSON line of kernel numbers, K1, K2, K4, K5 and E1-E3
+     (keygen's launches under `launches_keygen`, the mesh phase's under
+     launches_by_path "sobel_mesh"), then the device line last.
 
 Imports nothing of JAX and nothing of the JAX package eva_tpu."""
 
@@ -240,10 +250,15 @@ def ntt_ops(rows: int, n: int) -> int:
     return rows * (n // 2) * int(math.log2(n)) * OPS_PER_BUTTERFLY
 
 
+# Bytes one residue moves: 32-bit words (int32 tensors of uint32 bits).
+RESIDUE_BYTES = 4
+
+
 def ntt_bound_ms(rows: int, n: int, n_sub: int):
-    """Least time for one NTT launch: int64 rows read and written once,
+    """Least time for one NTT launch: 32-bit rows read and written once,
     the uint32 Shoup twiddle pair table read once; ntt_ops."""
-    return bound(rows * n * 8 * 2 + n_sub * n * 4 * 2, ntt_ops(rows, n))
+    return bound(rows * n * RESIDUE_BYTES * 2 + n_sub * n * 4 * 2,
+                 ntt_ops(rows, n))
 
 
 # NTT shapes held to the plain versions, at the cluster size the kernel
@@ -277,10 +292,16 @@ def ntt_inputs(device, n: int, lead, n_sub: int):
     primes = list(get_context(tuple(SOBEL_BITS), (), n, 1).all_primes)
     ops = DeviceLevelOps(primes[:n_sub], n, device)
     rng = np.random.default_rng(SEED + n + n_sub + len(lead))
-    x = torch.from_numpy(np.stack(
-        [rng.integers(0, q, tuple(lead) + (n,)) for q in ops.primes],
-        axis=len(lead))).to(device)
-    return ops, x
+    return ops, residues(rng, ops.primes, tuple(lead) + (n,), device)
+
+
+def residues(rng, primes, shape, device):
+    """Random reduced residues of `primes` [..., len(primes), N] (shape
+    = [..., N]) as an int32 tensor of their uint32 bits on `device`."""
+    from eva_tpu_torch.backend.modmath import upload
+    return upload(np.stack(
+        [rng.integers(0, q, shape, dtype=np.uint64) for q in primes],
+        axis=len(shape) - 1), device)
 
 
 def forced_clusters(n: int, device):
@@ -343,14 +364,16 @@ def kernel_phase(device):
 
 def mac_bound_ms(y, x_ntt, k0, n_ext: int, n: int):
     """Least time for one ks_mac launch. Bytes: y, x_ntt and both key
-    stacks read once, both accumulators written once (int64), the
+    stacks read once, both accumulators written once (32-bit words), the
     forward twiddle pairs (uint32) read once. Operations: the FBE of
     every (b, i, j) row the kernel must transform (all but the n_cur own
     rows when x_ntt is given), its NTT, and the MAC of every (b, i, j)."""
     batch, n_groups, alpha = y.shape[:3]
     own = x_ntt.shape[1] if x_ntt is not None else 0
-    byts = 8 * (y.numel() + (x_ntt.numel() if x_ntt is not None else 0)
-                + 2 * k0.numel() + 2 * batch * n_ext * n) + 8 * n_ext * n
+    byts = (RESIDUE_BYTES * (y.numel() + (x_ntt.numel() if x_ntt is not None
+                                          else 0)
+                             + 2 * k0.numel() + 2 * batch * n_ext * n)
+            + 8 * n_ext * n)
     fbe_rows = batch * (n_ext * n_groups - own)
     ops = (ntt_ops(fbe_rows, n)
            + fbe_rows * n * alpha * (OPS_PER_MONT_MUL + OPS_PER_ADD_MOD)
@@ -362,12 +385,12 @@ def mac_bound_ms(y, x_ntt, k0, n_ext: int, n: int):
 def epilogue_bound_ms(batch: int, n_ext: int, n_key: int, n: int,
                       out_ntt: bool):
     """Least time for one ks_epilogue call. Bytes: both accumulators read
-    and both outputs written once (int64), inverse (and forward) twiddle
+    and both outputs written once (32-bit words), inverse (and forward) twiddle
     pairs read once. Operations: the inverse NTT of 2B n_ext rows, the
     n_key division steps over the rows each leaves, the forward NTT of
     2B n_out rows with out_ntt."""
     n_out = n_ext - n_key
-    byts = (8 * 2 * batch * (n_ext + n_out) * n
+    byts = (RESIDUE_BYTES * 2 * batch * (n_ext + n_out) * n
             + 8 * n * (n_ext + (n_out if out_ntt else 0)))
     div_rows = sum(n_ext - 1 - d for d in range(n_key))
     ops = 2 * batch * (ntt_ops(n_ext, n) + div_rows * n * OPS_PER_DIVIDE
@@ -399,6 +422,7 @@ def ks_kernel_phase(device):
     import torch
     from eva_tpu_torch.backend import ks, ks_cuda
     from eva_tpu_torch.backend.executor_torch import _ks_dev_tables, _ks_maps
+    from eva_tpu_torch.backend.modmath import upload
     from eva_tpu_torch.backend.tables import level_ops
     from eva_tpu_torch.crypto.context import get_context
 
@@ -414,8 +438,7 @@ def ks_kernel_phase(device):
         ext = level_ops(basis, n, device)
         n_groups, _, conv_mont = _ks_dev_tables(ctx, level, alpha)
         _, owner, _ = _ks_maps(ctx, level, alpha)
-        conv = torch.from_numpy(conv_mont[..., 0].astype(np.int64)).to(
-            device)
+        conv = upload(conv_mont[..., 0], device)
         own = torch.from_numpy(np.concatenate(
             [owner, [-1] * n_key]).astype(np.int64)).to(device)
         for batch in batches:
@@ -423,15 +446,12 @@ def ks_kernel_phase(device):
                 SEED + n + batch + 31 * level + alpha)
 
             def planes(lead, qs):
-                return torch.from_numpy(np.stack(
-                    [rng.integers(0, q, lead + (n,)) for q in qs],
-                    axis=len(lead))).to(device)
+                return residues(rng, qs, lead + (n,), device)
 
-            y = np.zeros((batch, n_groups * alpha, n), dtype=np.int64)
+            y = np.zeros((batch, n_groups * alpha, n), dtype=np.uint64)
             for t, q in enumerate(primes):
-                y[:, t] = rng.integers(0, q, (batch, n))
-            y = torch.from_numpy(y).reshape(batch, n_groups, alpha, n).to(
-                device)
+                y[:, t] = rng.integers(0, q, (batch, n), dtype=np.uint64)
+            y = upload(y, device).reshape(batch, n_groups, alpha, n)
             k0, k1 = (torch.stack([planes((), basis)
                                    for _ in range(n_groups)])
                       for _ in range(2))
@@ -496,23 +516,160 @@ def ks_kernel_phase(device):
     return results
 
 
+# 32-bit integer operations per output element of each E1 op (the
+# compare and select of a reduction: 2): add 4, sub 4, neg 3; Montgomery
+# multiply OPS_PER_MONT_MUL; mul two of them; Shoup multiply (mulhi, 2
+# mul-lo, sub, compare + select) 6. E2, per element of its three outputs:
+# 5 Montgomery multiplies, 2 adds, 2 subs; E3: add, sub, Montgomery
+# multiply, compare, sub_mod.
+EW_OPS = {"add": 4, "sub": 4, "neg": 3, "mul_mont": OPS_PER_MONT_MUL,
+          "mul": 2 * OPS_PER_MONT_MUL, "shoup": 6}
+TENSOR_PRODUCT_OPS = 5 * OPS_PER_MONT_MUL + 4 * OPS_PER_ADD_MOD
+DIVIDE_OPS = OPS_PER_MONT_MUL + 2 + 2 + OPS_PER_ADD_MOD
+# Elementwise kernel shapes at N = 16384: (label, leading dims, primes).
+# Sobel's level 0 (11 data primes) at batch 1 and 4: the dyadic ops,
+# the tensor product and the rescale's first division; and Harris's (10).
+EW_SHAPES = (("sobel_l0", (), 11), ("sobel_l0_b4", (4,), 11),
+             ("harris_l0", (), 10))
+TIMED_EW = "sobel_l0"
+
+
+def ew_bound_ms(operands, outputs, ops_per_element: int):
+    """Least time for one elementwise launch: each operand read once and
+    each output written once (4 bytes a word), ops_per_element per
+    element of the (first) output."""
+    byts = RESIDUE_BYTES * sum(t.numel() for t in (*operands, *outputs))
+    return bound(byts, outputs[0].numel() * ops_per_element)
+
+
+def modmath_kernel_phase(device):
+    """Phase 2, elementwise kernels: E1 (every op; the second operand
+    full, broadcast over the batch, and a per-row constant; an unreduced
+    first operand for the multiplies), E2 and E3 against their plain
+    versions at EW_SHAPES (torch.equal); each timed at the Sobel level-0
+    shapes by graph_ms, beside its plain version and its bound."""
+    import torch
+    from eva_tpu_torch.backend import ks, modmath_cuda
+    from eva_tpu_torch.backend import modmath as M
+    from eva_tpu_torch.backend.modmath import upload, widen
+    from eva_tpu_torch.backend.tables import level_ops
+    from eva_tpu_torch.crypto.context import get_context
+
+    print("kernels modmath resources "
+          + json.dumps(modmath_cuda.kernel_info(device)), flush=True)
+    n = 16384
+    primes = list(get_context(tuple(SOBEL_BITS), (), n, 1).all_primes)
+    results = {}
+
+    def err(got, want):
+        return max(int((widen(g) - widen(w)).abs().max().item())
+                   for g, w in zip(got, want))
+
+    def record(key, label, kern, plain, operands, ops_per_element, timed):
+        got, want = kern(), plain()
+        got = got if isinstance(got, (list, tuple)) else [got]
+        want = want if isinstance(want, (list, tuple)) else [want]
+        torch.cuda.synchronize()
+        ok = all(g.dtype == torch.int32 and torch.equal(g, w)
+                 for g, w in zip(got, want))
+        shapes = [list(t.shape) for t in operands]
+        print(f"kernels {' '.join(map(str, key))} {label} {shapes} "
+              f"equal={ok}", flush=True)
+        if not ok:
+            raise AssertionError(f"{key} disagrees with its plain version "
+                                 f"at {label} {shapes}")
+        if not timed:
+            return
+        bms, bby = ew_bound_ms(operands, got, ops_per_element)
+        res = {"shape": shapes, "ms": graph_ms(kern, 50),
+               "eager_ms": eager_ms(kern, 200),
+               "plain_ms": graph_ms(plain, 5, reps=3),
+               "bound_ms": bms, "bound_by": bby,
+               "max_abs_err": err(got, want)}
+        print(f"kernel {' '.join(map(str, key))} {label} " + json.dumps(res),
+              flush=True)
+        results[key + (label,)] = res
+
+    for label, lead, n_sub in EW_SHAPES:
+        dev = level_ops(primes[:n_sub], n, device)
+        rest = level_ops(primes[:n_sub - 1], n, device)
+        rng = np.random.default_rng(SEED + n_sub + len(lead))
+        a, b, c, d = (residues(rng, dev.primes, lead + (n,), device)
+                      for _ in range(4))
+        shared = residues(rng, dev.primes, (n,), device)  # a plaintext
+        row = residues(rng, dev.primes, (1,), device)     # [n_sub, 1]
+        big = upload(rng.integers(0, 2 ** 32, lead + (n_sub, n),
+                                  dtype=np.uint64), device)
+        wp = upload(np.stack([M.shoup_pair(M.to_host(b[..., i, :]), q)[1]
+                              for i, q in enumerate(dev.primes)],
+                             axis=-2), device)
+        timed = label == TIMED_EW or label == TIMED_EW + "_b4"
+        for op, per in EW_OPS.items():
+            # (suffix, first, second operand): dyadic; a plaintext shared
+            # by the batch; a per-row constant; an unreduced first operand
+            # (the multiplies). Shoup takes only b (w and wp of one
+            # table), neg one operand.
+            cases = [("", a, b), ("_plaintext", a, shared), ("_row", a, row)]
+            if op in ("mul_mont", "mul", "shoup"):
+                cases.append(("_unreduced", big, b))
+            if op == "shoup":
+                cases = [case for case in cases if case[2] is b]
+            if op == "neg":
+                cases = cases[:1]
+            for suffix, x, y in cases:
+                if op == "neg":
+                    args = (x,)
+                elif op == "mul":
+                    args = (x, y, dev.r2)
+                elif op == "shoup":
+                    args = (x, y, wp)
+                else:
+                    args = (x, y)
+                plain = {"add": M.add_mod, "sub": M.sub_mod,
+                         "neg": M.neg_mod, "mul_mont": M.mont_mul,
+                         "mul": M.mul, "shoup": M.shoup_mul}[op]
+                extra = {"mul_mont": (dev.q, dev.rinv),
+                         "mul": (dev.q, dev.rinv, dev.r2),
+                         "shoup": (dev.q,)}.get(op, (dev.q,))
+                pargs = args[:2] if op == "mul" else args
+                record(("mod_ew", op), label + suffix,
+                       lambda op=op, args=args: modmath_cuda.mod_ew(
+                           op, dev, *args),
+                       lambda plain=plain, pargs=pargs, extra=extra:
+                       plain(*pargs, *extra),
+                       args, per, timed and not suffix)
+        record(("tensor_product",), label,
+               lambda: modmath_cuda.tensor_product(dev, a, b, c, d),
+               lambda: M.tensor_product(a, b, c, d, dev.q, dev.rinv, dev.r2),
+               (a, b, c, d), TENSOR_PRODUCT_OPS, timed)
+        record(("divide_last",), label,
+               lambda: ks.divide_last_planes(a, dev.primes, rest),
+               lambda: ks.divide_last_plain(a, dev.primes, rest),
+               (a,), DIVIDE_OPS, timed)
+    return results
+
+
 COUNTERS = ("ntt_launches", "plain_calls", "ks_launches", "ks_plain_calls",
-            "ks_max_batch")
+            "ks_max_batch", "modmath_launches", "modmath_plain_calls",
+            "modmath_ops")
 
 
 def _counters():
-    from eva_tpu_torch.backend import ks, ks_cuda, ntt_cuda, tables
+    from eva_tpu_torch.backend import (ks, ks_cuda, modmath, modmath_cuda,
+                                       ntt_cuda, tables)
     return (ntt_cuda.LAUNCHES, tables.PLAIN_CALLS, ks_cuda.LAUNCHES,
-            ks.PLAIN_CALLS, ks_cuda.MAX_BATCH)
+            ks.PLAIN_CALLS, ks_cuda.MAX_BATCH, modmath_cuda.LAUNCHES,
+            modmath.PLAIN_CALLS, modmath_cuda.OPS)
 
 
 def reset_counts():
-    from eva_tpu_torch.backend import ntt_cuda
+    from eva_tpu_torch.backend import modmath_cuda, ntt_cuda
     for counts in _counters():
         for k in counts:
             counts[k] = 0
     for rows in ntt_cuda.ROWS.values():
         rows.clear()
+    modmath_cuda.OPS.clear()
 
 
 def read_counts():
@@ -526,26 +683,46 @@ def read_rows():
     return {k: dict(sorted(v.items())) for k, v in ntt_cuda.ROWS.items()}
 
 
+def _plain(counts):
+    return {**counts["plain_calls"], **counts["ks_plain_calls"],
+            **{f"modmath {k}": v
+               for k, v in counts["modmath_plain_calls"].items()}}
+
+
 def check_counts(name, counts, fused: bool):
-    """Every kernel of the path launched, no plain version called; on the
-    structured path (fused False) no key-switch kernel either."""
+    """Every kernel of the path launched (K1, K2, E1, E2, E3; K4 and K5
+    on the fused path), no plain version called; on the structured path
+    (fused False) no key-switch kernel either."""
     ntt, ksl = counts["ntt_launches"], counts["ks_launches"]
-    plain = {**counts["plain_calls"], **counts["ks_plain_calls"]}
-    ok = min(ntt.values()) > 0 and not any(plain.values()) and (
-        min(ksl.values()) > 0 if fused else not any(ksl.values()))
+    ok = (min(ntt.values()) > 0
+          and min(counts["modmath_launches"].values()) > 0
+          and not any(_plain(counts).values())
+          and (min(ksl.values()) > 0 if fused else not any(ksl.values())))
     if not ok:
         raise AssertionError(f"{name}: counts {counts}")
 
 
 def check_keygen_counts(name, counts, n_keys: int):
-    """Keygen on the card: one K1 launch per key-switching key, no other
-    kernel and no plain version."""
+    """Keygen on the card: one K1 launch and five E1 launches (the
+    error's lift, two products, a difference and a sum) per
+    key-switching key, no other kernel and no plain version."""
     want = {"ntt_fwd": n_keys, "ntt_inv": 0}
-    plain = {**counts["plain_calls"], **counts["ks_plain_calls"]}
-    if (counts["ntt_launches"] != want or any(plain.values())
+    want_ew = {"mod_ew": 5 * n_keys, "tensor_product": 0, "divide_last": 0}
+    if (counts["ntt_launches"] != want
+            or counts["modmath_launches"] != want_ew
+            or any(_plain(counts).values())
             or any(counts["ks_launches"].values())):
         raise AssertionError(f"{name} keygen: counts {counts}, want "
-                             f"{want} NTT launches")
+                             f"{want} NTT and {want_ew} modmath launches")
+
+
+def check_int32(name, out):
+    """Every output plane of a program is an int32 residue tensor."""
+    import torch
+    bad = {k: str(c.dtype) for k, planes in out.items() for c in planes
+           if c.dtype != torch.int32}
+    if bad:
+        raise AssertionError(f"{name}: output planes not int32: {bad}")
 
 
 def check_equal(name, want, got):
@@ -776,6 +953,8 @@ def profiling_phase(device, compiled, paths):
 NTT_KERNELS = ("ntt_fwd_kernel", "ntt_inv_kernel")
 KS_KERNELS = ("ks_mac_cluster_kernel", "ks_epilogue_key_kernel",
               "ks_epilogue_row_kernel")
+MODMATH_KERNELS = ("mod_ew_kernel", "tensor_product_kernel",
+                   "divide_last_kernel")
 
 
 def profile_execute(name, pub, compiled, enc, top: int = 10):
@@ -809,8 +988,13 @@ def profile_execute(name, pub, compiled, enc, top: int = 10):
     return {"device_ms": sum(r[0] for r in rows) / 1e3,
             "ntt_ms": ms(NTT_KERNELS),
             "ks_ms": ms(KS_KERNELS),
+            "modmath_ms": ms(MODMATH_KERNELS),
+            "other_ms": sum(r[0] for r in rows if not any(
+                k in r[2] for k in NTT_KERNELS + KS_KERNELS
+                + MODMATH_KERNELS)) / 1e3,
             "kernel_launches": {k: sum(r[1] for r in rows if k in r[2])
-                                for k in NTT_KERNELS + KS_KERNELS},
+                                for k in NTT_KERNELS + KS_KERNELS
+                                + MODMATH_KERNELS},
             "wall_ms": wall, "device_ops": sum(r[1] for r in rows)}
 
 
@@ -827,11 +1011,15 @@ def check_replay_launches(name, prof, launches):
     name) against the launches its capture counted: equal, and none
     zero."""
     ks = launches["ks_launches"]
+    ew = launches["modmath_launches"]
     want = {"ntt_fwd_kernel": launches["ntt_launches"].get("ntt_fwd", 0),
             "ntt_inv_kernel": launches["ntt_launches"].get("ntt_inv", 0),
             "ks_mac_cluster_kernel": ks.get("ks_mac", 0),
             "ks_epilogue_key_kernel": ks.get("ks_epilogue", 0),
-            "ks_epilogue_row_kernel": ks.get("ks_epilogue", 0)}
+            "ks_epilogue_row_kernel": ks.get("ks_epilogue", 0),
+            "mod_ew_kernel": ew.get("mod_ew", 0),
+            "tensor_product_kernel": ew.get("tensor_product", 0),
+            "divide_last_kernel": ew.get("divide_last", 0)}
     got = (prof or {}).get("kernel_launches")
     if got != want or not min(want.values()) > 0:
         raise AssertionError(f"{name}: the replayed execute launched "
@@ -844,12 +1032,17 @@ def replay_phase(name, pub, compiled, enc, ref_out, reps=5):
     median, its profile (kernel launches by name against the capture's
     counts), and the host time of one replayed execute by step."""
     entry = captured_entry(pub, compiled, enc)
+    check_int32(f"{name} captured graph", entry.out)
     reset_counts()
     out = pub.execute(compiled, enc)
     counts = read_counts()
     check_equal(f"{name} replay against the numpy backend", ref_out, out)
+    if any(_plain(counts).values()):
+        raise AssertionError(f"{name}: a replay called a plain version: "
+                             f"{counts}")
     for counter, key in (("ntt_launches", "ntt_launches"),
-                         ("ks_launches", "ks_launches")):
+                         ("ks_launches", "ks_launches"),
+                         ("modmath_launches", "modmath_launches")):
         got = {k: v for k, v in counts[counter].items() if v}
         if got != entry.launches[key]:
             raise AssertionError(f"{name}: a replay counted {got}, its "
@@ -924,7 +1117,7 @@ def capture_phase(name, pub, compiled, enc, ref_out, reps=5):
     if prof is None:
         raise AssertionError(f"{name}: the profiler saw no device time")
     check_equal(f"{name}: eager against captured", captured, eager)
-    for counter in ("ntt_launches", "ks_launches"):
+    for counter in ("ntt_launches", "ks_launches", "modmath_launches"):
         got = {k: v for k, v in counts[counter].items() if v}
         if got != res["launches_per_execute"][counter]:
             raise AssertionError(f"{name}: eager launched {got}, the "
@@ -1172,8 +1365,7 @@ def mesh_phase(device, pub, compiled, sig, seed, reps=3):
         ctx, keys = pub.ctx, pub._keys
         n = ctx.n
         primes = ctx.primes_at_level(0)
-        poly = torch.from_numpy(np.stack(
-            [rng.integers(0, q, n) for q in primes])).to(device)
+        poly = residues(rng, primes, (n,), device)
         sks = ShardedKeySwitch(ctx, keys.relin, 0, init_device_mesh(
             "cuda", (1,), mesh_dim_names=("digit",)))
         fused = tp._key_switch(poly, 0, keys.relin)
@@ -1222,9 +1414,7 @@ def main() -> int:
         return 2
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
-    from concurrent.futures import ThreadPoolExecutor
-
-    from eva_tpu_torch.backend import ks_cuda, ntt_cuda
+    from eva_tpu_torch.backend import cuda_lib, modmath_cuda, ntt_cuda
 
     # -- 1. the card and the build -------------------------------------------
     smi = subprocess.run(
@@ -1234,16 +1424,15 @@ def main() -> int:
     print(card, flush=True)
     device = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    libs = (ntt_cuda, ks_cuda)
-    with ThreadPoolExecutor(len(libs)) as pool:
-        list(pool.map(lambda lib: lib.build(verbose=True), libs))
+    sources = cuda_lib.build_all(verbose=True)
     print(f"build_s {time.perf_counter() - t0:.2f} (nvcc sm_90a, in "
-          f"parallel: {', '.join(os.path.relpath(lib.SOURCE, root) for lib in libs)})",
+          f"parallel: {', '.join(os.path.relpath(s, root) for s in sources)})",
           flush=True)
 
     # -- 2. kernels against their plain version ------------------------------
     kern = kernel_phase(device)
     kern.update(ks_kernel_phase(device))
+    kern.update(modmath_kernel_phase(device))
 
     # -- 3. keygen on the card, then the main path ---------------------------
     keygen = keygen_phase(device)
@@ -1362,6 +1551,42 @@ def main() -> int:
                 for label, *_ in NTT_SHAPES}
         else:
             entry["batch4"] = {f: kern[(name, 4)][f] for f in fields}
+        kernels.append(entry)
+    ew_info = modmath_cuda.kernel_info(device)
+    fields = ("shape", "ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
+              "max_abs_err")
+    for name, key, replaces, info in (
+            ("mod_ew", ("mod_ew", "mul"), "modmath.py:59",
+             [f"mod_ew_{op}" for op in EW_OPS]),
+            ("tensor_product", ("tensor_product",), "tables.py:172",
+             ["tensor_product"]),
+            ("divide_last", ("divide_last",), "executor_jax.py:75",
+             ["divide_last"])):
+        k = kern[key + (TIMED_EW,)]
+        counter = "modmath_launches"
+        entry = {
+            "name": name, "route": "cuda",
+            "source": "eva_tpu_torch/csrc/modmath.cu",
+            "replaces": f"eva_tpu/backend/{replaces}",
+            "launches": paths["sobel"][counter][name],
+            "launches_by_path": {p: paths[p][counter][name] for p in paths},
+            "launches_per_execute": {
+                p: paths[p]["captured"]["launches_per_execute"][counter].get(
+                    name, 0) for p in paths if "captured" in paths[p]},
+            "launches_keygen": {
+                p: paths[p]["keygen_launches"][counter].get(name, 0)
+                for p in paths if "keygen_launches" in paths[p]},
+            **{f: k[f] for f in fields}, "library_ms": None,
+            "batch4": {f: kern[key + (TIMED_EW + "_b4",)][f]
+                       for f in fields},
+            "resources": {i: ew_info[i] for i in info}}
+        if name == "mod_ew":
+            entry["by_op"] = {op: {f: kern[("mod_ew", op, TIMED_EW)][f]
+                                   for f in fields} for op in EW_OPS}
+            entry["ops_per_execute"] = {
+                p: paths[p]["captured"]["launches_per_execute"].get(
+                    "modmath_ops", {}) for p in paths
+                if "captured" in paths[p]}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

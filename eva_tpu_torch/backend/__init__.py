@@ -1,12 +1,13 @@
 """PyTorch execution backend: the GPU compute path.
 
-Ciphertext polynomials are [n_sub, N] limb planes held as int64 torch
-tensors (residues < q < 2^31). Elementwise modular arithmetic is plain
-PyTorch; the negacyclic NTT, which every rescale, relinearization and
-rotation runs, is a hand-written CUDA kernel on the GPU (csrc/ntt.cu)
-and its plain PyTorch version on the CPU. Precomputed operands (key
-switch keys, inverse factors) are stored in Montgomery form as in the
-JAX package, so the device results are bit-identical to it."""
+Ciphertext polynomials are [n_sub, N] limb planes held as int32 torch
+tensors carrying the JAX package's uint32 residues (residues < q < 2^31;
+modmath.py). The elementwise modular arithmetic (E1-E3,
+csrc/modmath.cu), the negacyclic NTT (csrc/ntt.cu) and the fused key
+switch (csrc/ks.cu) are hand-written CUDA kernels on the GPU and their
+plain PyTorch versions on the CPU. Precomputed operands (key switch keys,
+inverse factors) are stored in Montgomery form as in the JAX package, so
+the device results are bit-identical to it."""
 
 from __future__ import annotations
 

@@ -5,7 +5,8 @@ library with a plain C interface, at first use, into
 `build/eva_tpu_torch/` beside the package, and loaded with ctypes. A
 library is rebuilt when it is older than its source or any shared
 header (csrc/*.cuh). Builds of different sources are independent, so a
-caller may run them in parallel (chip_smoke.py does)."""
+caller may run them in parallel (`build_all`, which chip_smoke.py
+calls)."""
 
 from __future__ import annotations
 
@@ -63,6 +64,18 @@ def build(source: str, lib_path: str, verbose: bool = False) -> str:
     return lib_path
 
 
+def build_all(verbose: bool = False) -> list:
+    """Build every kernel library of the port (ntt.cu, ks.cu, modmath.cu),
+    one nvcc per source, all started together; returns the sources."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from . import ks_cuda, modmath_cuda, ntt_cuda
+    libs = (ntt_cuda, ks_cuda, modmath_cuda)
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(lambda lib: lib.build(verbose), libs))
+    return [lib.SOURCE for lib in libs]
+
+
 def check_ring(n: int, name: str) -> None:
     """Raise unless N is a power of two the kernels take."""
     if n & (n - 1) or not (1 << MIN_LOGN) <= n <= (1 << MAX_LOGN):
@@ -70,12 +83,16 @@ def check_ring(n: int, name: str) -> None:
                          f"[{1 << MIN_LOGN}, {1 << MAX_LOGN}]")
 
 
-def check_tensor(x: torch.Tensor, device: torch.device, name: str) -> None:
-    """Raise unless x is a contiguous int64 tensor on the CUDA `device`."""
+def check_tensor(x: torch.Tensor, device: torch.device, name: str,
+                 dtype: torch.dtype = torch.int32) -> None:
+    """Raise unless x is a contiguous tensor of `dtype` on the CUDA
+    `device`: int32 for residues (their uint32 bit patterns), int64 for
+    index tables."""
     if not x.is_cuda:
         raise ValueError(f"{name}: tensor is not on a CUDA device")
-    if x.dtype != torch.int64:
-        raise ValueError(f"{name}: expected int64 residues, got {x.dtype}")
+    if x.dtype != dtype:
+        what = "int32 residues" if dtype == torch.int32 else f"{dtype}"
+        raise ValueError(f"{name}: expected {what}, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError(f"{name}: tensor must be contiguous")
     if x.device != device:

@@ -1,5 +1,6 @@
-"""Whole-graph PyTorch executor: runs a compiled EVA program over int64
-limb-plane tensors on one torch device.
+"""Whole-graph PyTorch executor: runs a compiled EVA program over limb-plane
+tensors on one torch device: int32 tensors carrying the JAX package's
+uint32 residues (backend/modmath.py), with int64 index tables.
 
 Port of the single-device part of eva_tpu/backend/executor_jax.py. The
 JAX package traces the DAG into one jitted executable per input tree
@@ -10,7 +11,9 @@ constant and kernel library, then captures it into a torch.cuda.CUDAGraph
 over static input tensors; every execute copies its inputs into those
 tensors and replays the graph. On the CPU `_traced` runs eagerly.
 Every rescale, relinearization and rotation runs the negacyclic NTT
-(tables.DeviceLevelOps.ntt/intt: the CUDA kernels on a GPU).
+(tables.DeviceLevelOps.ntt/intt: the CUDA kernels on a GPU), and every
+modular op the elementwise kernels of csrc/modmath.cu on a GPU (E1
+through DeviceLevelOps, E2 its tensor_product, E3 ks.divide_last_planes).
 
 Key switching takes the JAX package's TPU branches: relinearizations,
 non-hoisted rotations and both fused relin/rescale pairs run the fused
@@ -61,16 +64,20 @@ from ..crypto.ciphertext import Ciphertext, Plaintext
 from ..crypto.context import CKKSContext
 from ..ir import ROTATION, Op, Program, Term, Type
 from ..passes import rotation_hoist_sources
-from . import ks_cuda, ntt_cuda, resolve_device
-from .modmath import to_mont, to_mont_rows as _to_mont_rows
+from . import ks_cuda, modmath_cuda, ntt_cuda, resolve_device
+from .modmath import to_host, to_mont, to_mont_rows as _to_mont_rows, upload
 from .ks import MAX_KEY_PRIMES, divide_last_planes, ks_epilogue, ks_mac
 from .tables import DeviceLevelOps, level_ops
 
 
 def _to_dev(arr: np.ndarray, device) -> torch.Tensor:
-    """Host residues (uint64/uint32, < 2^32) -> int64 tensor on device."""
-    return torch.from_numpy(
-        np.ascontiguousarray(arr).astype(np.int64)).to(device)
+    """A host table on `device`: signed integer arrays are indices (int64
+    tensors); residues (unsigned, < 2^32) go up as int32 tensors of their
+    uint32 bit patterns (modmath.upload)."""
+    if np.asarray(arr).dtype.kind == "i":
+        return torch.from_numpy(
+            np.ascontiguousarray(arr, dtype=np.int64)).to(device)
+    return upload(arr, device)
 
 def _plain_np(pt) -> np.ndarray:
     """Host plaintext planes for upload: the data-prime rows, with the
@@ -214,7 +221,7 @@ class StructDigits:
 
 
 class DeviceKeys:
-    """Key material lazily converted to device form (Montgomery, int64)
+    """Key material lazily converted to device form (Montgomery, int32)
     in the per-level structured layout matching StructDigits. Only the
     (key, level) pairs a program actually uses are uploaded."""
 
@@ -532,9 +539,10 @@ class TorchProgram:
         loc = member.shape[0]
         nloc = y.shape[-1]  # = ctx.n, or the local shard on a seq mesh
         ym = torch.index_select(y, -2, member.reshape(-1))
+        # [..., loc, alpha, 1, nloc] against conv [loc, alpha, n_ext, 1]:
+        # the op broadcasts the member rows over the extended basis.
         ym = ym.reshape(y.shape[:-2] + (loc, alpha, 1, nloc))
-        prod = ext.mul_mont(ym.expand(
-            y.shape[:-2] + (loc, alpha, n_ext, nloc)), conv)
+        prod = ext.mul_mont(ym, conv)
         acc = prod[..., 0, :, :]
         for k in range(1, alpha):
             acc = ext.add(acc, prod[..., k, :, :])
@@ -576,9 +584,9 @@ class TorchProgram:
             # reduce-scatter, 1/limb-sized cross-node all-reduce,
             # intra-node gather (bit-identical to a flat all-reduce).
             acc0, acc1 = (hierarchical_modular_all_reduce(
-                a, ext.q, dp["group"], dp["dcn_group"]) for a in (acc0, acc1))
+                a, ext, dp["group"], dp["dcn_group"]) for a in (acc0, acc1))
         else:
-            acc0, acc1 = (_modular_all_reduce(a, ext.q, dp["group"])
+            acc0, acc1 = (_modular_all_reduce(a, ext, dp["group"])
                           for a in (acc0, acc1))
         if defer:
             # Rotation-sum fusion: the all-reduced accumulators are the
@@ -810,16 +818,15 @@ class TorchProgram:
         ext = self._ext_ops_at(level)
         if alpha == 1:
             # Values are < q_t but possibly >= basis[i], and the
-            # merged-twist NTT requires reduced input.
-            acc = ext.reduce(coeffs[..., :, None, :].expand(
-                coeffs.shape[:-2] + (n_cur, n_ext, coeffs.shape[-1])))
+            # merged-twist NTT requires reduced input. [..., n_cur, 1, N]
+            # broadcasts over the n_ext rows of the extended basis.
+            acc = ext.reduce(coeffs[..., :, None, :])
         else:
             _, _, conv_mont = _ks_dev_tables(ctx, level, alpha)
             y, _ = self._ks_fbe_y(coeffs, level, alpha)
-            yb = y[..., :, None, :].expand(
-                y.shape[:-2] + (n_groups * alpha, n_ext, y.shape[-1]))
-            prod = ext.mul_mont(yb, self._const(("ks_conv", level, alpha),
-                                                conv_mont))
+            prod = ext.mul_mont(y[..., :, None, :],
+                                self._const(("ks_conv", level, alpha),
+                                            conv_mont))
             g = prod.reshape(
                 prod.shape[:-3] + (n_groups, alpha, n_ext, prod.shape[-1]))
             acc = g[..., 0, :, :]
@@ -1594,9 +1601,9 @@ class TorchProgram:
         device = self.device
         with torch.cuda.device(device):
             entry = _Captured(
-                {k: [torch.empty(a.shape, dtype=torch.int64, device=device)
+                {k: [torch.empty(a.shape, dtype=torch.int32, device=device)
                      for a in planes] for k, planes in cipher.items()},
-                {k: torch.empty(a.shape, dtype=torch.int64, device=device)
+                {k: torch.empty(a.shape, dtype=torch.int32, device=device)
                  for k, a in plain.items()},
                 {k: (pt, self._upload_plain(pt))
                  for k, pt in consts.items()})
@@ -1628,16 +1635,17 @@ class TorchProgram:
         return entry
 
     def _result(self, out, b=None) -> Dict[str, object]:
-        """Host Ciphertext/Plaintext outputs from host (CPU) tensors;
-        with b, batch element b of [B, n_sub, N] planes ([B, k, n_sub, N]
-        for sharded big vectors; a plane without the batch axis, computed
-        from constants alone, serves every element)."""
+        """Host Ciphertext/Plaintext outputs from host (CPU) int32 tensors
+        (uint32 residue bits, read by modmath.to_host); with b, batch
+        element b of [B, n_sub, N] planes ([B, k, n_sub, N] for sharded
+        big vectors; a plane without the batch axis, computed from
+        constants alone, serves every element)."""
         plane_dims = 2 if self.k == 1 else 3
         result = {}
         for name, t in self.program.outputs.items():
             if self.types[t] == Type.Raw:
                 continue
-            planes = [c.numpy().astype(np.uint64) for c in out[name]]
+            planes = [to_host(c) for c in out[name]]
             if b is not None:
                 planes = [pl[b] if pl.ndim > plane_dims else pl
                           for pl in planes]
@@ -1809,7 +1817,9 @@ def _counters():
             "ntt_fwd_rows": ntt_cuda.ROWS["ntt_fwd"],
             "ntt_inv_rows": ntt_cuda.ROWS["ntt_inv"],
             "ks_launches": ks_cuda.LAUNCHES,
-            "ks_max_batch": ks_cuda.MAX_BATCH}
+            "ks_max_batch": ks_cuda.MAX_BATCH,
+            "modmath_launches": modmath_cuda.LAUNCHES,
+            "modmath_ops": modmath_cuda.OPS}
 
 
 def _take_counts(restore=None) -> Dict[str, dict]:
@@ -1883,12 +1893,13 @@ class _Captured:
         stage = next((st for st in self._stages if st[0].query()), None)
         if stage is None:
             stage = (torch.cuda.Event(),
-                     [torch.empty(t.shape, dtype=torch.int64,
+                     [torch.empty(t.shape, dtype=torch.int32,
                                   pin_memory=True) for t in self._static])
             self._stages.append(stage)
         done, bufs = stage
         for dst, arr, buf in zip(self._static, arrays, bufs):
-            np.copyto(buf.numpy(), arr, casting="unsafe")
+            # uint64 host residues (< 2^32) into the int32 buffer's bits.
+            np.copyto(buf.numpy().view(np.uint32), arr, casting="unsafe")
             dst.copy_(buf, non_blocking=True)
         done.record()
 

@@ -12,10 +12,12 @@ the host order) and batches only the deterministic arithmetic
     b_j = fac_j * target - a_j * s + NTT(e_j)   over the full basis
 
 across the digits of one key: one forward NTT of [G, n_all, N] planes
-(the CUDA kernel ntt_fwd on the card) and three elementwise passes. The
-arithmetic is exact, so the key material is byte-identical to the host
-path given the same randomness. On a CPU device it runs the plain
-PyTorch version of the NTT."""
+(the CUDA kernel ntt_fwd on the card) and the elementwise passes (the
+error's lift into every prime, the two products, the sum: the CUDA
+kernel E1 on the card). Planes are int32 tensors of uint32 residues
+(backend/modmath.py). The arithmetic is exact, so the key material is
+byte-identical to the host path given the same randomness. On a CPU
+device it runs the plain PyTorch versions."""
 
 from __future__ import annotations
 
@@ -37,14 +39,15 @@ class DeviceKeygen:
         self.dev = level_ops(ctx.all_primes, ctx.n, device)
         self.device = self.dev.device
 
-    def _compute(self, A, E, fac, target, s_rows):
-        """A [G, n_all, N], E [G, 1, N] signed errors, fac [G, n_all, 1],
-        target and s_rows [n_all, N]: b [G, n_all, N]."""
+    def _compute(self, A, e_pos, e_neg, fac, target, s_rows):
+        """A [G, n_all, N]; the signed errors as e_pos = max(E, 0) and
+        e_neg = max(-E, 0), [G, 1, N]; fac [G, n_all, 1]; target and
+        s_rows [n_all, N]: b [G, n_all, N]."""
         dev = self.dev
-        # Lift each signed error into every basis prime's residues: the
-        # [n_all, 1] moduli broadcast E's [G, 1, N] to [G, n_all, N].
-        e_res = torch.where(E < 0, dev.q + E, E)
-        e_ntt = dev.ntt(e_res)
+        # Lift each signed error into every basis prime's residues,
+        # e_pos - e_neg mod q: the [n_all, 1] moduli broadcast the
+        # [G, 1, N] halves to [G, n_all, N].
+        e_ntt = dev.ntt(dev.sub(e_pos, e_neg))
         ft = dev.mul(fac, target)    # fac_j * target, [G, n_all, N]
         a_s = dev.mul(A, s_rows)     # a_j * s
         return dev.add(dev.sub(ft, a_s), e_ntt)
@@ -57,21 +60,25 @@ class DeviceKeygen:
         pinned = self.device.type == "cuda"
 
         def up(parts):
-            """The arrays `parts` (one shape) stacked as int64 on the
-            device: cast once into a host buffer, page-locked on a CUDA
-            device so that the upload runs at the link's rate."""
+            """The arrays `parts` (one shape, values below 2^32) stacked
+            as int32 uint32 bits on the device: cast once into a host
+            buffer, page-locked on a CUDA device so that the upload runs
+            at the link's rate."""
             host = torch.empty((len(parts),) + parts[0].shape,
-                               dtype=torch.int64, pin_memory=pinned)
-            for dst, src in zip(host.numpy(), parts):
+                               dtype=torch.int32, pin_memory=pinned)
+            for dst, src in zip(host.numpy().view(np.uint32), parts):
                 np.copyto(dst, src, casting="unsafe")
             return host.to(self.device, non_blocking=True)
 
-        b = self._compute(up(As), up(Es)[:, None, :], up(facs)[:, :, None],
+        e_pos = [np.maximum(e, 0) for e in Es]
+        e_neg = [np.maximum(-e, 0) for e in Es]
+        b = self._compute(up(As), up(e_pos)[:, None, :],
+                          up(e_neg)[:, None, :], up(facs)[:, :, None],
                           up([target_ntt])[0], up([s_rows])[0])
         host = b
         if pinned:
-            host = torch.empty(b.shape, dtype=torch.int64, pin_memory=True)
+            host = torch.empty(b.shape, dtype=torch.int32, pin_memory=True)
             host.copy_(b)  # waits for the device
-        # Residues < 2^31: the int64 bit patterns are the uint64 values.
-        b_host = host.numpy().view(np.uint64)
-        return [b_host[j].copy() for j in range(len(As))], list(As)
+        b_host = host.numpy().view(np.uint32)
+        return ([b_host[j].astype(np.uint64) for j in range(len(As))],
+                list(As))

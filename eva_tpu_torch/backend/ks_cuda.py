@@ -90,14 +90,15 @@ def _shape(x: torch.Tensor, want, name: str) -> None:
 
 def ks_mac(y, k0, k1, conv, owner, ext_ops, x_ntt=None):
     """The MAC kernel (see ks.ks_mac_plain for the arguments): acc0, acc1
-    [B, n_ext, N] int64."""
+    [B, n_ext, N] int32."""
     name = "CUDA ks_mac"
     n = ext_ops.n
     n_ext = len(ext_ops.primes)
     cuda_lib.check_ring(n, name)
-    args = [y, k0, k1, conv, owner] + ([] if x_ntt is None else [x_ntt])
+    args = [y, k0, k1, conv] + ([] if x_ntt is None else [x_ntt])
     for t in args:
         cuda_lib.check_tensor(t, ext_ops.device, name)
+    cuda_lib.check_tensor(owner, ext_ops.device, name, torch.int64)
     if y.dim() != 4 or y.shape[-1] != n:
         raise ValueError(f"{name}: y shape {tuple(y.shape)} is not "
                          f"[B, n_groups, alpha, {n}]")
@@ -113,7 +114,7 @@ def ks_mac(y, k0, k1, conv, owner, ext_ops, x_ntt=None):
             raise ValueError(f"{name}: x_ntt shape {tuple(x_ntt.shape)} is "
                              f"not [B, n_cur < {n_ext}, {n}]")
         _shape(x_ntt, (batch, n_cur, n), name)
-    acc0 = torch.empty((batch, n_ext, n), dtype=torch.int64, device=y.device)
+    acc0 = torch.empty((batch, n_ext, n), dtype=torch.int32, device=y.device)
     acc1 = torch.empty_like(acc0)
     if batch == 0:
         return acc0, acc1
@@ -134,10 +135,11 @@ def ks_mac(y, k0, k1, conv, owner, ext_ops, x_ntt=None):
 def _pdiv(ext_ops, n_key: int) -> np.ndarray:
     """Division constants [n_key, 2 n_ext + 2] of ks.cu's epilogue: step
     d drops ext prime n_ext-1-d = p; row r holds p^-1 mod q_r and its
-    Shoup quotient, then p and p // 2 (pallas_ks.PallasEpilogue.pdiv)."""
+    Shoup quotient, then p and p // 2 (pallas_ks.PallasEpilogue.pdiv);
+    every value is below 2^32 (uint32)."""
     primes = ext_ops.primes
     n_ext = len(primes)
-    pdiv = np.zeros((n_key, 2 * n_ext + 2), dtype=np.int64)
+    pdiv = np.zeros((n_key, 2 * n_ext + 2), dtype=np.uint32)
     for d in range(n_key):
         p = primes[n_ext - 1 - d]
         for r, q in enumerate(primes[:n_ext - 1 - d]):
@@ -151,7 +153,7 @@ def _pdiv(ext_ops, n_key: int) -> np.ndarray:
 
 def ks_epilogue(acc0, acc1, ext_ops, n_key: int, out_ntt: bool):
     """The epilogue kernels (see ks.ks_epilogue_plain): d0, d1
-    [B, n_ext - n_key, N] int64."""
+    [B, n_ext - n_key, N] int32."""
     name = "CUDA ks_epilogue"
     n = ext_ops.n
     n_ext = len(ext_ops.primes)
@@ -167,7 +169,7 @@ def ks_epilogue(acc0, acc1, ext_ops, n_key: int, out_ntt: bool):
                          f"{min(MAX_KEY_PRIMES, n_ext - 1)}]")
     batch = acc0.shape[0]
     n_out = n_ext - n_key
-    out0 = torch.empty((batch, n_out, n), dtype=torch.int64,
+    out0 = torch.empty((batch, n_out, n), dtype=torch.int32,
                        device=acc0.device)
     out1 = torch.empty_like(out0)
     if batch == 0:

@@ -1,18 +1,32 @@
-"""Modular arithmetic on int64 torch tensors.
+"""Modular arithmetic on 32-bit residues held in int32 torch tensors.
 
-Port of eva_tpu/backend/modmath.py. Primes are < 2^31 and residues are
-stored as int64, so every product of a residue (< 2^32, possibly
-unreduced) with a constant (< q < 2^31) is below 2^63 and plain `%` is
-exact. mont_mul and shoup_mul return the canonical residue, which is
-exactly what the 32-bit Montgomery and Shoup reductions of the JAX
-package return for every input they accept (a < 2^32, constant < q).
+Port of eva_tpu/backend/modmath.py. The JAX package keeps every residue
+plane as uint32; PyTorch's CPU build lacks uint32 arithmetic, comparison
+and index_select, so the port holds the same bit patterns in int32
+tensors: canonical residues (below q < 2^31) read the same either way,
+and an unreduced value in [2^31, 2^32) (a divide-last sum, an alpha = 1
+digit broadcast) reads as negative. Index tensors stay int64.
+
+The host boundary (`upload`, `to_host`) moves uint32 bit patterns: numpy
+uint64/uint32 residues go up through a uint32 view, and come back with
+`.view(np.uint32)`, never a sign-extending cast.
+
+On the card the elementwise ops are hand-written CUDA kernels
+(csrc/modmath.cu via modmath_cuda; tables.DeviceLevelOps dispatches by
+device). The functions here are their plain PyTorch versions: they widen
+each operand to int64 (`widen`: x & 0xFFFFFFFF, the uint32 value),
+compute exactly (primes are < 2^31, so every product of a value below
+2^32 with a constant below q is below 2^63 and `%` is exact), and narrow
+the canonical result back to int32. mont_mul and shoup_mul return the
+canonical residue, which is what the 32-bit Montgomery and Shoup
+reductions of the JAX package return for every input they accept
+(a < 2^32, constant < q). `PLAIN_CALLS` counts the calls of the public
+plain ops; the underscored int64 bodies serve the plain NTT and
+key-switch versions, which widen once at entry.
 
 The host precompute (Montgomery constants, Shoup pairs) stays numpy and
-is unchanged: the device tables keep the JAX package's values, and the
-CUDA NTT kernels read the Shoup pairs directly.
-
-All helpers broadcast per-row constants: q and friends are [n_sub, 1]
-tensors against [..., n_sub, N] data planes."""
+is unchanged. All helpers broadcast per-row constants: q and friends are
+[n_sub, 1] tensors against [..., n_sub, N] data planes."""
 
 from __future__ import annotations
 
@@ -20,6 +34,42 @@ import numpy as np
 import torch
 
 R_BITS = 32
+MASK32 = 0xFFFFFFFF
+
+# Calls of the plain versions of the elementwise kernels (a CPU tensor
+# reached an elementwise op). A run on the card that went through the
+# kernels leaves these at 0.
+PLAIN_CALLS = {"add": 0, "sub": 0, "neg": 0, "mul_mont": 0, "mul": 0,
+               "shoup": 0, "tensor_product": 0, "divide_last": 0}
+
+
+# -- storage ------------------------------------------------------------------
+
+
+def widen(x: torch.Tensor) -> torch.Tensor:
+    """int32 residue bits -> their uint32 values as int64."""
+    return x.to(torch.int64) & MASK32
+
+
+def narrow(x: torch.Tensor) -> torch.Tensor:
+    """int64 values below 2^32 -> int32 tensors of their uint32 bits."""
+    return x.to(torch.int32)
+
+
+def upload(arr, device) -> torch.Tensor:
+    """Host residues (numpy, uint64 or uint32 values below 2^32) -> an
+    int32 tensor of their uint32 bit patterns on `device`."""
+    a = np.ascontiguousarray(arr, dtype=np.uint32)
+    return torch.from_numpy(a.view(np.int32)).to(device)
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """An int32 residue tensor -> a uint64 numpy array of its uint32
+    values (on the host)."""
+    return t.cpu().numpy().view(np.uint32).astype(np.uint64)
+
+
+# -- host precompute ---------------------------------------------------------
 
 
 def mont_constants(q: int):
@@ -49,14 +99,6 @@ def to_mont_rows(arr: np.ndarray, primes) -> np.ndarray:
     return out
 
 
-def mont_mul(a, b_mont, q, rinv):
-    """a * b mod q, with b in Montgomery form (b_mont = b*R mod q < q).
-    Valid for any 0 <= a < 2^32: a * b_mont < 2^63, and the canonical
-    result a * b_mont * R^-1 mod q equals the 32-bit Montgomery
-    reduction's."""
-    return (a * b_mont % q) * rinv % q
-
-
 def shoup_pair(w, q: int):
     """Host precompute: (w mod q, floor(w * 2^32 / q)) for shoup_mul."""
     w = np.asarray(w, dtype=np.uint64) % np.uint64(q)
@@ -69,22 +111,93 @@ def shoup_stack(w, q: int) -> np.ndarray:
     return np.stack(shoup_pair(w, q))
 
 
-def shoup_mul(a, w, wp, q):
-    """a * w mod q for a known constant w < q. Valid for any
-    0 <= a < 2^32. `wp` (floor(w*2^32/q)) is what the CUDA kernels use
-    for the precomputed-quotient multiply; the plain version needs only
-    w, since a * w < 2^63."""
+# -- int64 bodies (widened operands) ------------------------------------------
+
+
+def _mont(a, b_mont, q, rinv):
+    """a * b mod q, with b in Montgomery form (b_mont = b*R mod q < q).
+    Valid for any 0 <= a < 2^32: a * b_mont < 2^63, and the canonical
+    result a * b_mont * R^-1 mod q equals the 32-bit Montgomery
+    reduction's."""
+    return (a * b_mont % q) * rinv % q
+
+
+def _shoup(a, w, q):
+    """a * w mod q for a known constant w < q, any 0 <= a < 2^32. The
+    kernels use the precomputed quotient w' = floor(w*2^32/q); the plain
+    version needs only w, since a * w < 2^63."""
     return a * w % q
 
 
-def add_mod(a, b, q):
+def _add(a, b, q):
     s = a + b
     return torch.where(s >= q, s - q, s)
 
 
-def sub_mod(a, b, q):
+def _sub(a, b, q):
     return torch.where(a >= b, a - b, a + q - b)
 
 
-def neg_mod(a, q):
+def _neg(a, q):
     return torch.where(a == 0, a, q - a)
+
+
+def _tensor_product(a0, a1, b0, b1, q, rinv, r2):
+    """The Karatsuba tensor product of DeviceLevelOps.tensor_product on
+    widened planes: 5 Montgomery multiplies."""
+    a0m = _mont(a0, r2, q, rinv)  # a0*R mod q (Montgomery form)
+    a1m = _mont(a1, r2, q, rinv)
+    am_sum = _add(a0m, a1m, q)
+    b_sum = _add(b0, b1, q)
+    p0 = _mont(b0, a0m, q, rinv)        # a0*b0 mod q
+    p2 = _mont(b1, a1m, q, rinv)        # a1*b1 mod q
+    pm = _mont(b_sum, am_sum, q, rinv)  # (a0+a1)(b0+b1) mod q
+    return p0, _sub(_sub(pm, p0, q), p2, q), p2
+
+
+# -- plain versions of the elementwise kernels (int32 in and out) -------------
+
+
+def add_mod(a, b, q):
+    PLAIN_CALLS["add"] += 1
+    return narrow(_add(widen(a), widen(b), widen(q)))
+
+
+def sub_mod(a, b, q):
+    PLAIN_CALLS["sub"] += 1
+    return narrow(_sub(widen(a), widen(b), widen(q)))
+
+
+def neg_mod(a, q):
+    PLAIN_CALLS["neg"] += 1
+    return narrow(_neg(widen(a), widen(q)))
+
+
+def mont_mul(a, b_mont, q, rinv):
+    """a * b mod q, b in Montgomery form; any a < 2^32 (see _mont)."""
+    PLAIN_CALLS["mul_mont"] += 1
+    return narrow(_mont(widen(a), widen(b_mont), widen(q), widen(rinv)))
+
+
+def mul(a, b, q, rinv, r2):
+    """a * b mod q, both standard: two Montgomery steps, the second by
+    R^2 mod q (DeviceLevelOps.mul)."""
+    PLAIN_CALLS["mul"] += 1
+    q, rinv = widen(q), widen(rinv)
+    return narrow(_mont(_mont(widen(a), widen(b), q, rinv), widen(r2), q,
+                        rinv))
+
+
+def shoup_mul(a, w, wp, q):
+    """a * w mod q for a known constant w < q (wp = floor(w*2^32/q), read
+    by the kernel only); any a < 2^32."""
+    PLAIN_CALLS["shoup"] += 1
+    return narrow(_shoup(widen(a), widen(w), widen(q)))
+
+
+def tensor_product(a0, a1, b0, b1, q, rinv, r2):
+    """[d0, d1, d2] of the ciphertext tensor product (see
+    _tensor_product)."""
+    PLAIN_CALLS["tensor_product"] += 1
+    out = _tensor_product(*(widen(t) for t in (a0, a1, b0, b1, q, rinv, r2)))
+    return [narrow(t) for t in out]

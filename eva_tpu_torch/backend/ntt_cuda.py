@@ -107,7 +107,7 @@ def _raise(name: str, err: int) -> None:
 
 
 def ntt_fwd(x: torch.Tensor, ops, _cluster: int = 0) -> torch.Tensor:
-    """Forward negacyclic NTT of reduced [..., n_sub, N] int64 planes
+    """Forward negacyclic NTT of reduced [..., n_sub, N] int32 planes
     (natural in, bit-reversed out) with the tables of `ops`
     (a DeviceLevelOps). `_cluster` forces a cluster size (tests only; 0:
     the kernel library's choice)."""
@@ -128,7 +128,7 @@ def ntt_fwd(x: torch.Tensor, ops, _cluster: int = 0) -> torch.Tensor:
 
 def ntt_inv(x: torch.Tensor, ops, _cluster: int = 0) -> torch.Tensor:
     """Inverse negacyclic NTT (bit-reversed in, natural out, N^-1
-    folded) of [..., n_sub, N] int64 planes; `_cluster` as in ntt_fwd."""
+    folded) of [..., n_sub, N] int32 planes; `_cluster` as in ntt_fwd."""
     rows = _check(x, ops)
     out = torch.empty_like(x)
     if rows == 0:

@@ -1,15 +1,17 @@
 """Precomputed device tables for one RNS prime set (one chain level).
 
 Port of eva_tpu/backend/tables.py. Holds per-row modulus constants and
-Shoup-pair NTT twiddle tables, plus the transforms over [..., n_sub, N]
-int64 limb planes. The butterfly schedule is identical to the host
-tables (crypto/ntt.py), so device results are bit-identical to the numpy
-backend and to the JAX package.
+Shoup-pair NTT twiddle tables, plus the elementwise modular ops and the
+transforms over [..., n_sub, N] limb planes: int32 tensors carrying the
+uint32 residues of the JAX package (backend/modmath.py). The butterfly
+schedule is identical to the host tables (crypto/ntt.py), so device
+results are bit-identical to the numpy backend and to the JAX package.
 
-`ntt`/`intt` dispatch on the tensor's device: a CUDA tensor goes through
-the hand-written CUDA kernels (backend/ntt_cuda.py, csrc/ntt.cu); a CPU
-tensor through `_fwd_merged`/`_inv_merged`, the plain PyTorch version of
-the same schedule."""
+Every op dispatches on the tensor's device: a CUDA tensor goes through
+the hand-written CUDA kernels (elementwise ops and the tensor product:
+modmath_cuda, csrc/modmath.cu; ntt/intt: ntt_cuda, csrc/ntt.cu) or
+raises; a CPU tensor through the plain PyTorch versions (modmath's, and
+`_fwd_merged`/`_inv_merged` for the NTT); any other device raises."""
 
 from __future__ import annotations
 
@@ -19,9 +21,10 @@ import numpy as np
 import torch
 
 from ..crypto.ntt import _bit_reverse_perm, get_table
+from . import modmath as M
 from . import resolve_device
-from .modmath import (add_mod, mont_constants, mont_mul, mont_rinv,
-                      neg_mod, shoup_mul, shoup_pair, sub_mod)
+from .modmath import (_add, _shoup, _sub, mont_constants, mont_rinv,
+                      shoup_pair, upload, widen)
 
 # Calls of the plain NTT (a CPU tensor reached ntt/intt). A run on the
 # card that went through the kernels leaves these at 0.
@@ -43,9 +46,20 @@ def level_ops(primes: List[int], n: int, device=None) -> "DeviceLevelOps":
 
 
 def _col(values, device) -> torch.Tensor:
-    """[n_sub, 1] int64 per-row constant on `device`."""
-    return torch.tensor(np.asarray(values, dtype=np.int64).reshape(-1, 1),
-                        device=device)
+    """[n_sub, 1] int32 per-row constant (uint32 bits) on `device`."""
+    return upload(np.asarray(values, dtype=np.uint64).reshape(-1, 1),
+                  device)
+
+
+def _check_operands(name: str, operands) -> None:
+    """The plain versions take what the kernels take: int32 residues on
+    the CPU (a CUDA tensor never reaches them through the dispatch)."""
+    for t in operands:
+        if t.device.type != "cpu":
+            raise ValueError(f"{name}: unsupported device {t.device}")
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name}: expected int32 residues, got "
+                             f"{t.dtype}")
 
 
 def _powers(base: int, q: int, n: int) -> np.ndarray:
@@ -111,47 +125,88 @@ class DeviceLevelOps:
             "mst_i": stack_pairs(list(mi)),
             "ninv": stack_pairs(list(ninv_v)),
         }
-        dev = lambda a: torch.from_numpy(a.astype(np.int64)).to(self.device)
-        self.one = tuple(dev(a) for a in stack_pairs(
+        self.one = tuple(upload(a, self.device) for a in stack_pairs(
             [np.ones(1, dtype=np.uint64) for _ in primes]))
-        self.mst_f = tuple(dev(a) for a in self.np_tables["mst_f"])
-        self.mst_i = tuple(dev(a) for a in self.np_tables["mst_i"])
-        self.ninv = tuple(dev(a) for a in self.np_tables["ninv"])
+        self.mst_f = tuple(upload(a, self.device)
+                           for a in self.np_tables["mst_f"])
+        self.mst_i = tuple(upload(a, self.device)
+                           for a in self.np_tables["mst_i"])
+        self.ninv = tuple(upload(a, self.device)
+                          for a in self.np_tables["ninv"])
         self._consts: Dict[object, torch.Tensor] = {}
         self._kernel_tables = None
+        self._wide_tables = None
 
     def const(self, key, build) -> torch.Tensor:
-        """A host-built numpy constant uploaded once to this device as
-        int64 (cached under `key`)."""
+        """A host-built numpy constant (residues, or other values below
+        2^32) uploaded once to this device as int32 uint32 bits (cached
+        under `key`)."""
         t = self._consts.get(key)
         if t is None:
-            t = torch.from_numpy(
-                np.ascontiguousarray(build()).astype(np.int64)).to(self.device)
-            self._consts[key] = t
+            t = self._consts[key] = upload(build(), self.device)
         return t
+
+    def _wide(self):
+        """The plain versions' tables, widened to int64 once on this
+        device: q, R^-1, and the NTT's twiddles (w only: the plain Shoup
+        multiply needs no quotient)."""
+        if self._wide_tables is None:
+            self._wide_tables = {
+                "q": widen(self.q), "mst_f": widen(self.mst_f[0]),
+                "mst_i": widen(self.mst_i[0]), "ninv": widen(self.ninv[0])}
+        return self._wide_tables
 
     # -- elementwise --------------------------------------------------------
 
-    def add(self, a, b):
-        return add_mod(a, b, self.q)
+    def _ew(self, op: str, plain, *operands, prime_dim: int = -2):
+        """Elementwise op `op` (modmath_cuda.OP_CODES) on the operands,
+        the primes along the output's dim `prime_dim`: E1 on a CUDA tensor
+        (non-contiguous operands copied first), `plain` on a CPU tensor,
+        anything else raises."""
+        if operands[0].is_cuda:
+            from .modmath_cuda import mod_ew
+            return mod_ew(op, self, *(t.contiguous() for t in operands),
+                          prime_dim=prime_dim)
+        _check_operands(op, operands)
+        return plain(*operands)
 
-    def sub(self, a, b):
-        return sub_mod(a, b, self.q)
+    def _q_at(self, prime_dim: int):
+        """q shaped [n_sub, 1, ...] for primes along dim `prime_dim`."""
+        return self.q.reshape((-1,) + (1,) * (-prime_dim - 1))
+
+    def add(self, a, b, prime_dim: int = -2):
+        return self._ew("add", lambda a, b: M.add_mod(
+            a, b, self._q_at(prime_dim)), a, b, prime_dim=prime_dim)
+
+    def sub(self, a, b, prime_dim: int = -2):
+        return self._ew("sub", lambda a, b: M.sub_mod(
+            a, b, self._q_at(prime_dim)), a, b, prime_dim=prime_dim)
 
     def neg(self, a):
-        return neg_mod(a, self.q)
+        return self._ew("neg", lambda a: M.neg_mod(a, self.q), a)
 
     def mul_mont(self, a, b_mont):
         """a (standard, may be unreduced) * b (Montgomery form)."""
-        return mont_mul(a, b_mont, self.q, self.rinv)
+        return self._ew("mul_mont",
+                        lambda a, b: M.mont_mul(a, b, self.q, self.rinv),
+                        a, b_mont)
+
+    def mul_shoup(self, a, w, wp, prime_dim: int = -2):
+        """a (any value below 2^32) * w by the Shoup pair (w, wp): w < q,
+        wp = floor(w * 2^32 / q), broadcast like any operand."""
+        return self._ew("shoup", lambda a, w, wp: M.shoup_mul(
+            a, w, wp, self._q_at(prime_dim)), a, w, wp, prime_dim=prime_dim)
 
     def reduce(self, a):
         """a mod q (per row) for any a < 2^32: a Shoup multiply by 1."""
-        return shoup_mul(a, self.one[0], self.one[1], self.q)
+        return self.mul_shoup(a, *self.one)
 
     def mul(self, a, b):
-        """Both operands standard-domain (ct-ct dyadic multiply)."""
-        return self.mul_mont(self.mul_mont(a, b), self.r2)
+        """Both operands standard-domain (ct-ct dyadic multiply): two
+        Montgomery steps, the second by R^2 mod q."""
+        return self._ew("mul",
+                        lambda a, b, r2: M.mul(a, b, self.q, self.rinv, r2),
+                        a, b, self.r2)
 
     # -- NTT ----------------------------------------------------------------
 
@@ -159,49 +214,52 @@ class DeviceLevelOps:
         """Harvey merged-psi forward (natural in, bit-reversed out): the
         negacyclic twist lives in the stage twiddles, one constant per
         butterfly block. Requires reduced input. Plain PyTorch version
-        of the CUDA kernel ntt_fwd."""
-        PLAIN_CALLS["ntt_fwd"] += 1
-        lead = x.shape[:-1]
-        n = self.n
-        q3 = self.q[:, None, :]
-        wsf, wpf = self.mst_f
-        m, t = 1, n
-        while m < n:
-            t >>= 1
-            ww = wsf[:, m:2 * m][:, :, None]
-            wp = wpf[:, m:2 * m][:, :, None]
-            xr = x.reshape(*lead, m, 2 * t)
-            lo = xr[..., :t]
-            hi = shoup_mul(xr[..., t:], ww, wp, q3)
-            x = torch.cat(
-                (add_mod(lo, hi, q3), sub_mod(lo, hi, q3)),
-                dim=-1).reshape(*lead, n)
-            m <<= 1
-        return x
+        of the CUDA kernel ntt_fwd: int32 in and out."""
+        return self._fwd64(widen(x)).to(torch.int32)
 
     def _inv_merged(self, x):
         """Harvey merged-psi^-1 inverse (bit-reversed in, natural out)
         with N^-1 folded into the last stage. Plain PyTorch version of
-        the CUDA kernel ntt_inv."""
-        PLAIN_CALLS["ntt_inv"] += 1
+        the CUDA kernel ntt_inv: int32 in and out."""
+        return self._inv64(widen(x)).to(torch.int32)
+
+    def _fwd64(self, x):
+        """_fwd_merged on widened (int64) planes."""
+        PLAIN_CALLS["ntt_fwd"] += 1
+        wide = self._wide()
         lead = x.shape[:-1]
         n = self.n
-        q3 = self.q[:, None, :]
-        wsi, wpi = self.mst_i
+        q3 = wide["q"][:, None, :]
+        m, t = 1, n
+        while m < n:
+            t >>= 1
+            ww = wide["mst_f"][:, m:2 * m][:, :, None]
+            xr = x.reshape(*lead, m, 2 * t)
+            lo = xr[..., :t]
+            hi = _shoup(xr[..., t:], ww, q3)
+            x = torch.cat((_add(lo, hi, q3), _sub(lo, hi, q3)),
+                          dim=-1).reshape(*lead, n)
+            m <<= 1
+        return x
+
+    def _inv64(self, x):
+        """_inv_merged on widened (int64) planes."""
+        PLAIN_CALLS["ntt_inv"] += 1
+        wide = self._wide()
+        lead = x.shape[:-1]
+        n = self.n
+        q3 = wide["q"][:, None, :]
         m, t = n >> 1, 1
         while m >= 1:
-            ww = wsi[:, m:2 * m][:, :, None]
-            wp = wpi[:, m:2 * m][:, :, None]
+            ww = wide["mst_i"][:, m:2 * m][:, :, None]
             xr = x.reshape(*lead, m, 2 * t)
             lo = xr[..., :t]
             hi = xr[..., t:]
-            s = add_mod(lo, hi, q3)
+            s = _add(lo, hi, q3)
             if m == 1:  # fold N^-1 into the final stage's lo branch
-                s = shoup_mul(s, self.ninv[0][:, :, None],
-                              self.ninv[1][:, :, None], q3)
-            x = torch.cat(
-                (s, shoup_mul(sub_mod(lo, hi, q3), ww, wp, q3)),
-                dim=-1).reshape(*lead, n)
+                s = _shoup(s, wide["ninv"][:, :, None], q3)
+            x = torch.cat((s, _shoup(_sub(lo, hi, q3), ww, q3)),
+                          dim=-1).reshape(*lead, n)
             m >>= 1
             t <<= 1
         return x
@@ -213,13 +271,14 @@ class DeviceLevelOps:
         primes[:k]."""
         if self._kernel_tables is None:
             def up(a):
-                return torch.from_numpy(
-                    np.ascontiguousarray(a).view(np.int32)).to(self.device)
+                return upload(a, self.device)
             t = self.np_tables
             self._kernel_tables = {
                 "q": up(np.array(self.primes, dtype=np.uint32)),
                 "nqinv": up(np.array([mont_constants(q)[0]
                                       for q in self.primes], dtype=np.uint32)),
+                "r2": up(np.array([mont_constants(q)[2]
+                                   for q in self.primes], dtype=np.uint32)),
                 "wf": up(t["mst_f"][0]), "wpf": up(t["mst_f"][1]),
                 "wi": up(t["mst_i"][0]), "wpi": up(t["mst_i"][1]),
                 "ninv": up(t["ninv"][0][:, 0]),
@@ -232,15 +291,15 @@ class DeviceLevelOps:
 
         Karatsuba over the 2x2 product with a one-time Montgomery
         conversion of the a-side: 5 mont_muls instead of the naive 8
-        (each standard-domain product costs 2)."""
-        a0m = self.mul_mont(a0, self.r2)  # a0*R mod q (Montgomery form)
-        a1m = self.mul_mont(a1, self.r2)
-        am_sum = self.add(a0m, a1m)
-        b_sum = self.add(b0, b1)
-        p0 = self.mul_mont(b0, a0m)       # a0*b0 mod q
-        p2 = self.mul_mont(b1, a1m)       # a1*b1 mod q
-        pm = self.mul_mont(b_sum, am_sum)  # (a0+a1)(b0+b1) mod q
-        return [p0, self.sub(self.sub(pm, p0), p2), p2]
+        (each standard-domain product costs 2). One E2 launch on a CUDA
+        tensor (modmath_cuda.tensor_product), modmath.tensor_product on a
+        CPU tensor."""
+        operands = (a0, a1, b0, b1)
+        if a0.is_cuda:
+            from .modmath_cuda import tensor_product
+            return tensor_product(self, *(t.contiguous() for t in operands))
+        _check_operands("tensor_product", operands)
+        return M.tensor_product(*operands, self.q, self.rinv, self.r2)
 
     def ntt(self, a):
         """Coefficient -> evaluation (bit-reversed order). REQUIRES
@@ -251,8 +310,7 @@ class DeviceLevelOps:
         if a.is_cuda:
             from .ntt_cuda import ntt_fwd
             return ntt_fwd(a.contiguous(), self)
-        if a.device.type != "cpu":
-            raise ValueError(f"ntt: unsupported device {a.device}")
+        _check_operands("ntt", (a,))
         return self._fwd_merged(a)
 
     def intt(self, x):
@@ -260,6 +318,5 @@ class DeviceLevelOps:
         if x.is_cuda:
             from .ntt_cuda import ntt_inv
             return ntt_inv(x.contiguous(), self)
-        if x.device.type != "cpu":
-            raise ValueError(f"intt: unsupported device {x.device}")
+        _check_operands("intt", (x,))
         return self._inv_merged(x)

@@ -9,8 +9,10 @@
 // register-radix body ntt_fwd_row / ntt_inv_row). Plain PyTorch versions:
 // eva_tpu_torch/backend/ks.py.
 //
-// Data is int64 in device memory (residues < q < 2^31), 32-bit words in
-// shared memory (in the swizzled order of ntt_common.cuh) and registers.
+// Data is uint32 words throughout (int32 tensors carrying the residues'
+// uint32 bits; residues < q < 2^31): in device memory, in shared memory
+// (in the swizzled order of ntt_common.cuh) and in registers. Only the
+// digit-owner table is int64 (an index).
 // Row i of the extended basis (the level's n_cur data primes, then the
 // n_key key primes) uses prime i and row i of the [n_ext, N] twiddle
 // tables. Blocks have row_threads(logn) threads: 1024 from N = 8192 up.
@@ -45,10 +47,10 @@
 // 0 (six digit groups) C = 6 at B = 1, one digit per block; C = 2 at B = 4,
 // three digits per block in one wave rather than four waves of one.
 // What bounds it: at Sobel's level 0 (n_cur 11, n_key 2, alpha 2, six
-// digit groups, N = 16384, B = 1) it must read 20.4 MB of key rows and
-// 2.9 MB of inputs and write 3.4 MB (8.6 us at 3.35 TB/s), and run 67 row
+// digit groups, N = 16384, B = 1) it must read 10.2 MB of key rows and
+// 1.4 MB of inputs and write 1.7 MB (4.0 us at 3.35 TB/s), and run 67 row
 // NTTs plus the FBE and MAC, ~170M 32-bit integer operations (10.2 us at
-// 16.7e12 op/s): operations, narrowly; at B = 4 operations, clearly. The
+// 16.7e12 op/s): operations, clearly. The
 // design spreads the 67 NTTs over 78 blocks (one SM each) instead of 13,
 // and runs each NTT in 5 register passes instead of 14 shared-memory
 // stages.
@@ -71,7 +73,7 @@
 //      (pointwise, in registers); with out_ntt the forward NTT of row r;
 //      one write.
 // The critical path is two row transforms (iNTT, then NTT) instead of
-// three. What bounds it: at Sobel's level 0 it moves 6.3 MB (1.9 us) and
+// three. What bounds it: at Sobel's level 0 it moves 3.1 MB (0.9 us) and
 // runs 48 row NTTs plus the divisions, ~86M operations (5.1 us):
 // operations.
 //
@@ -85,8 +87,7 @@
 // Left on the table: a row's NTT still runs on one SM, at about that SM's
 // 32-bit integer rate (~13 us at N = 16384), and at B = 1 both kernels
 // leave SMs idle (78 and 26 blocks for 132 SMs); splitting a row over a
-// cluster would use them. Rows are int64 in device memory (32-bit rows
-// would halve the bytes). The bulk L2 prefetch of the key rows moves
+// cluster would use them. The bulk L2 prefetch of the key rows moves
 // little: it costs 2% at B = 1 and saves 2% at B = 4 (PERF.md).
 
 #include <cooperative_groups.h>
@@ -129,13 +130,13 @@ __device__ __forceinline__ void prefetch_l2(const void* p, uint32_t bytes) {
 constexpr int kBatch = 8;
 
 __device__ __forceinline__ void load_row(uint32_t* s,
-                                         const int64_t* __restrict__ src,
+                                         const uint32_t* __restrict__ src,
                                          int n) {
   const int T = blockDim.x;
   for (int e0 = threadIdx.x; e0 < n; e0 += kBatch * T) {
     uint32_t v[kBatch];
 #pragma unroll
-    for (int u = 0; u < kBatch; ++u) v[u] = (uint32_t)src[e0 + u * T];
+    for (int u = 0; u < kBatch; ++u) v[u] = src[e0 + u * T];
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) s[swz(e0 + u * T)] = v[u];
   }
@@ -148,7 +149,7 @@ template <int PER>
 __device__ __forceinline__ void cluster_sum(cg::cluster_group& cluster,
                                             uint32_t* s,
                                             const uint32_t (&part)[PER],
-                                            int64_t* __restrict__ out,
+                                            uint32_t* __restrict__ out,
                                             int C, int lo, int hi,
                                             uint32_t q) {
 #pragma unroll
@@ -161,7 +162,7 @@ __device__ __forceinline__ void cluster_sum(cg::cluster_group& cluster,
 #pragma unroll
     for (int r = 0; r < kMaxCluster; ++r)
       if (r < C) sum = add_mod_r(sum, cluster.map_shared_rank(s, r)[at], q);
-    out[e] = (int64_t)sum;
+    out[e] = sum;
   }
   // No rank writes s again, or exits, before every rank has read it.
   cluster.sync();
@@ -170,17 +171,17 @@ __device__ __forceinline__ void cluster_sum(cg::cluster_group& cluster,
 template <int PER>
 __global__ void __launch_bounds__(1024, 1)
     ks_mac_cluster_kernel(
-        const int64_t* __restrict__ y,      // [B, G, alpha, N]
-        const int64_t* __restrict__ x_ntt,  // [B, n_cur, N] | null
-        const int64_t* __restrict__ k0,     // [G, n_ext, N]
-        const int64_t* __restrict__ k1,     // [G, n_ext, N]
-        const int64_t* __restrict__ conv,   // [G * alpha, n_ext]
-        const int64_t* __restrict__ owner,  // [n_ext]
+        const uint32_t* __restrict__ y,      // [B, G, alpha, N]
+        const uint32_t* __restrict__ x_ntt,  // [B, n_cur, N] | null
+        const uint32_t* __restrict__ k0,     // [G, n_ext, N]
+        const uint32_t* __restrict__ k1,     // [G, n_ext, N]
+        const uint32_t* __restrict__ conv,   // [G * alpha, n_ext]
+        const int64_t* __restrict__ owner,   // [n_ext]
         const uint32_t* __restrict__ qs, const uint32_t* __restrict__ nqinvs,
         const uint32_t* __restrict__ w,   // [n_ext, N]
         const uint32_t* __restrict__ wp,  // [n_ext, N]
-        int64_t* __restrict__ acc0,       // [B, n_ext, N]
-        int64_t* __restrict__ acc1, int n_groups, int alpha, int n_ext,
+        uint32_t* __restrict__ acc0,      // [B, n_ext, N]
+        uint32_t* __restrict__ acc1, int n_groups, int alpha, int n_ext,
         int n_cur, int logn) {
   extern __shared__ uint32_t s[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -203,29 +204,29 @@ __global__ void __launch_bounds__(1024, 1)
   for (int e = 0; e < PER; ++e) a0[e] = a1[e] = 0;
 
   for (int j = c; j < n_groups; j += C) {
-    const int64_t* k0r = k0 + ((size_t)j * n_ext + i) * n;
-    const int64_t* k1r = k1 + ((size_t)j * n_ext + i) * n;
-    if (tid < 32) {  // a row is 8N bytes: 32 chunks of N / 4
-      const uint32_t chunk = (uint32_t)n * 8 / 32;
+    const uint32_t* k0r = k0 + ((size_t)j * n_ext + i) * n;
+    const uint32_t* k1r = k1 + ((size_t)j * n_ext + i) * n;
+    if (tid < 32) {  // a row is 4N bytes: 32 chunks of N / 8
+      const uint32_t chunk = (uint32_t)n * 4 / 32;
       prefetch_l2((const char*)k0r + tid * chunk, chunk);
       prefetch_l2((const char*)k1r + tid * chunk, chunk);
     }
-    const int64_t* src;  // this digit's NTT row, int64 in device memory
+    const uint32_t* src;  // this digit's NTT row, in device memory
     if (j == own) {
       src = x_ntt + ((size_t)b * n_cur + i) * n;
     } else {
-      const int64_t* yr = y + ((size_t)b * n_groups + j) * alpha * n;
-      const int64_t* cr = conv + (size_t)j * alpha * n_ext + i;
+      const uint32_t* yr = y + ((size_t)b * n_groups + j) * alpha * n;
+      const uint32_t* cr = conv + (size_t)j * alpha * n_ext + i;
       for (int e0 = tid; e0 < n; e0 += kBatch * T) {
         uint32_t d[kBatch];
 #pragma unroll
         for (int u = 0; u < kBatch; ++u) d[u] = 0;
         for (int k = 0; k < alpha; ++k) {
-          const int64_t* yk = yr + (size_t)k * n + e0;
-          const uint32_t ck = (uint32_t)cr[(size_t)k * n_ext];
+          const uint32_t* yk = yr + (size_t)k * n + e0;
+          const uint32_t ck = cr[(size_t)k * n_ext];
           uint32_t v[kBatch];
 #pragma unroll
-          for (int u = 0; u < kBatch; ++u) v[u] = (uint32_t)yk[u * T];
+          for (int u = 0; u < kBatch; ++u) v[u] = yk[u * T];
 #pragma unroll
           for (int u = 0; u < kBatch; ++u)
             d[u] = add_mod_r(d[u], mont_mul(v[u], ck, q, nqinv), q);
@@ -240,9 +241,9 @@ __global__ void __launch_bounds__(1024, 1)
 #pragma unroll
     for (int e = 0; e < PER; ++e) {
       const int idx = tid + e * T;
-      const uint32_t v = src ? (uint32_t)src[idx] : s[swz(idx)];
-      a0[e] = add_mod_r(a0[e], mont_mul(v, (uint32_t)k0r[idx], q, nqinv), q);
-      a1[e] = add_mod_r(a1[e], mont_mul(v, (uint32_t)k1r[idx], q, nqinv), q);
+      const uint32_t v = src ? src[idx] : s[swz(idx)];
+      a0[e] = add_mod_r(a0[e], mont_mul(v, k0r[idx], q, nqinv), q);
+      a1[e] = add_mod_r(a1[e], mont_mul(v, k1r[idx], q, nqinv), q);
     }
     // The next digit's FBE, or the cluster sum, overwrites s.
     if (!src) __syncthreads();
@@ -261,8 +262,8 @@ __global__ void __launch_bounds__(1024, 1)
 // Block (a, b, kk): inverse NTT of key row kk (ext row n_ext - n_key + kk)
 // of accumulator a, batch b, into scratch[a, b, kk] (uint32).
 __global__ void __launch_bounds__(1024)
-    ks_epilogue_key_kernel(const int64_t* __restrict__ acc0,
-                           const int64_t* __restrict__ acc1,
+    ks_epilogue_key_kernel(const uint32_t* __restrict__ acc0,
+                           const uint32_t* __restrict__ acc1,
                            uint32_t* __restrict__ scratch,
                            const uint32_t* __restrict__ qs,
                            const uint32_t* __restrict__ wi,
@@ -279,7 +280,7 @@ __global__ void __launch_bounds__(1024)
   const int b = (blockIdx.x / n_key) % batch;
   const int a = blockIdx.x / (n_key * batch);
   const int row = n_ext - n_key + kk;
-  const int64_t* src = (a ? acc1 : acc0) + ((size_t)b * n_ext + row) * n;
+  const uint32_t* src = (a ? acc1 : acc0) + ((size_t)b * n_ext + row) * n;
 
   load_row(s, src, n);
   __syncthreads();
@@ -292,16 +293,16 @@ __global__ void __launch_bounds__(1024)
 // Block (a, b, r), r < n_out = n_ext - n_key: row r of d_a[b], for
 // n_key = NKEY (one kernel per key-prime count, so the division's key
 // values and loops live in registers).
-// pdiv is [n_key, 2 * n_ext + 2] int64: for division step d (dropping ext
+// pdiv is [n_key, 2 * n_ext + 2] uint32: for division step d (dropping ext
 // prime n_ext - 1 - d), columns [0, n_ext) hold (p_d^-1 mod q_r), columns
 // [n_ext, 2 n_ext) its Shoup quotient, then p_d and p_d / 2.
 template <int NKEY>
 __global__ void __launch_bounds__(1024)
-    ks_epilogue_row_kernel(const int64_t* __restrict__ acc0,
-                           const int64_t* __restrict__ acc1,
+    ks_epilogue_row_kernel(const uint32_t* __restrict__ acc0,
+                           const uint32_t* __restrict__ acc1,
                            const uint32_t* __restrict__ scratch,
-                           int64_t* __restrict__ out0,
-                           int64_t* __restrict__ out1,
+                           uint32_t* __restrict__ out0,
+                           uint32_t* __restrict__ out1,
                            const uint32_t* __restrict__ qs,
                            const uint32_t* __restrict__ wi,
                            const uint32_t* __restrict__ wpi,
@@ -309,7 +310,7 @@ __global__ void __launch_bounds__(1024)
                            const uint32_t* __restrict__ ninvp,
                            const uint32_t* __restrict__ wf,
                            const uint32_t* __restrict__ wpf,
-                           const int64_t* __restrict__ pdiv, int batch,
+                           const uint32_t* __restrict__ pdiv, int batch,
                            int n_ext, int out_ntt, int logn) {
   extern __shared__ uint32_t s[];
   // The division's constants, gathered once: for step d, cst[4d ..] = p_d,
@@ -324,19 +325,19 @@ __global__ void __launch_bounds__(1024)
   const int b = (blockIdx.x / n_out) % batch;
   const int a = blockIdx.x / (n_out * batch);
   const uint32_t q = qs[r];
-  const int64_t* src = (a ? acc1 : acc0) + ((size_t)b * n_ext + r) * n;
+  const uint32_t* src = (a ? acc1 : acc0) + ((size_t)b * n_ext + r) * n;
   const uint32_t* keys = scratch + ((size_t)a * batch + b) * NKEY * n;
 
   if (threadIdx.x < NKEY) {
     const int d = threadIdx.x;
-    const int64_t* pd = pdiv + (size_t)d * (2 * n_ext + 2);
-    cst[4 * d] = (uint32_t)pd[2 * n_ext];
-    cst[4 * d + 1] = (uint32_t)pd[2 * n_ext + 1];
-    cst[4 * d + 2] = (uint32_t)pd[r];
-    cst[4 * d + 3] = (uint32_t)pd[n_ext + r];
+    const uint32_t* pd = pdiv + (size_t)d * (2 * n_ext + 2);
+    cst[4 * d] = pd[2 * n_ext];
+    cst[4 * d + 1] = pd[2 * n_ext + 1];
+    cst[4 * d + 2] = pd[r];
+    cst[4 * d + 3] = pd[n_ext + r];
     for (int kk = 0; kk < NKEY; ++kk) {
-      cst[kinv + 2 * (d * NKEY + kk)] = (uint32_t)pd[n_cur + kk];
-      cst[kinv + 2 * (d * NKEY + kk) + 1] = (uint32_t)pd[n_ext + n_cur + kk];
+      cst[kinv + 2 * (d * NKEY + kk)] = pd[n_cur + kk];
+      cst[kinv + 2 * (d * NKEY + kk) + 1] = pd[n_ext + n_cur + kk];
     }
     cst[kq + d] = qs[n_cur + d];
   }
@@ -387,15 +388,15 @@ __global__ void __launch_bounds__(1024)
   if (out_ntt)
     ntt_fwd_row(s, wf + (size_t)r * n, wpf + (size_t)r * n, q, logn);
 
-  int64_t* dst = (a ? out1 : out0) + ((size_t)b * n_out + r) * n;
-  for (int e = threadIdx.x; e < n; e += T) dst[e] = (int64_t)s[swz(e)];
+  uint32_t* dst = (a ? out1 : out0) + ((size_t)b * n_out + r) * n;
+  for (int e = threadIdx.x; e < n; e += T) dst[e] = s[swz(e)];
 }
 
-using RowKernel = void (*)(const int64_t*, const int64_t*, const uint32_t*,
-                           int64_t*, int64_t*, const uint32_t*,
+using RowKernel = void (*)(const uint32_t*, const uint32_t*, const uint32_t*,
+                           uint32_t*, uint32_t*, const uint32_t*,
                            const uint32_t*, const uint32_t*, const uint32_t*,
                            const uint32_t*, const uint32_t*, const uint32_t*,
-                           const int64_t*, int, int, int, int);
+                           const uint32_t*, int, int, int, int);
 
 // The row kernel for n_key key primes, or null when n_key is out of range.
 RowKernel row_kernel(int n_key) {
@@ -412,10 +413,10 @@ RowKernel row_kernel(int n_key) {
   }
 }
 
-using MacKernel = void (*)(const int64_t*, const int64_t*, const int64_t*,
-                           const int64_t*, const int64_t*, const int64_t*,
+using MacKernel = void (*)(const uint32_t*, const uint32_t*, const uint32_t*,
+                           const uint32_t*, const uint32_t*, const int64_t*,
                            const uint32_t*, const uint32_t*, const uint32_t*,
-                           const uint32_t*, int64_t*, int64_t*, int, int,
+                           const uint32_t*, uint32_t*, uint32_t*, int, int,
                            int, int, int);
 
 // The MAC kernel for a row of 2^logn (PER = N / row_threads words per
@@ -560,18 +561,18 @@ int eva_ks_mac(const void* y, const void* x_ntt, const void* k0,
   if (err != cudaSuccess) return (int)err;
   MacLaunch l(logn, C, n_ext * C, batch, (cudaStream_t)stream);
   err = cudaLaunchKernelEx(
-      &l.cfg, kernel, (const int64_t*)y, (const int64_t*)x_ntt,
-      (const int64_t*)k0, (const int64_t*)k1, (const int64_t*)conv,
+      &l.cfg, kernel, (const uint32_t*)y, (const uint32_t*)x_ntt,
+      (const uint32_t*)k0, (const uint32_t*)k1, (const uint32_t*)conv,
       (const int64_t*)owner, (const uint32_t*)q, (const uint32_t*)nqinv,
-      (const uint32_t*)w, (const uint32_t*)wp, (int64_t*)acc0,
-      (int64_t*)acc1, n_groups, alpha, n_ext, n_cur, logn);
+      (const uint32_t*)w, (const uint32_t*)wp, (uint32_t*)acc0,
+      (uint32_t*)acc1, n_groups, alpha, n_ext, n_cur, logn);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // The epilogue for `batch` elements: the key-row inverse NTTs into
 // `scratch` ([2, batch, n_key, N] uint32), and the row pass, launched as
 // its programmatic dependent, into out0 / out1 ([batch, n_ext - n_key, N]
-// int64). Returns the first launch's error, if any.
+// uint32). Returns the first launch's error, if any.
 int eva_ks_epilogue(const void* acc0, const void* acc1, void* scratch,
                     void* out0, void* out1, const void* q, const void* wi,
                     const void* wpi, const void* ninv, const void* ninvp,
@@ -585,7 +586,7 @@ int eva_ks_epilogue(const void* acc0, const void* acc1, void* scratch,
   const size_t smem = sizeof(uint32_t) << logn;
   cudaStream_t st = (cudaStream_t)stream;
   ks_epilogue_key_kernel<<<2 * batch * n_key, threads, smem, st>>>(
-      (const int64_t*)acc0, (const int64_t*)acc1, (uint32_t*)scratch,
+      (const uint32_t*)acc0, (const uint32_t*)acc1, (uint32_t*)scratch,
       (const uint32_t*)q, (const uint32_t*)wi, (const uint32_t*)wpi,
       (const uint32_t*)ninv, (const uint32_t*)ninvp, batch, n_ext, n_key,
       logn);
@@ -603,11 +604,11 @@ int eva_ks_epilogue(const void* acc0, const void* acc1, void* scratch,
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(
-      &cfg, row, (const int64_t*)acc0,
-      (const int64_t*)acc1, (const uint32_t*)scratch, (int64_t*)out0,
-      (int64_t*)out1, (const uint32_t*)q, (const uint32_t*)wi,
+      &cfg, row, (const uint32_t*)acc0,
+      (const uint32_t*)acc1, (const uint32_t*)scratch, (uint32_t*)out0,
+      (uint32_t*)out1, (const uint32_t*)q, (const uint32_t*)wi,
       (const uint32_t*)wpi, (const uint32_t*)ninv, (const uint32_t*)ninvp,
-      (const uint32_t*)wf, (const uint32_t*)wpf, (const int64_t*)pdiv, batch,
+      (const uint32_t*)wf, (const uint32_t*)wpf, (const uint32_t*)pdiv, batch,
       n_ext, out_ntt, logn);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }

@@ -12,16 +12,17 @@
 // Every output is the canonical residue, so results equal the TPU
 // kernels' and the host tables' bit for bit.
 //
-// Layout: data is [rows, N] int64 (residues < q < 2^31), row r uses prime
-// r % n_sub. Twiddle tables are [n_sub, N] uint32 Shoup pairs (w, w'):
-// stage m reads entries [m, 2m).
+// Layout: data is [rows, N] uint32 words (int32 tensors carrying the
+// residues' uint32 bits; residues < q < 2^31), row r uses prime r % n_sub.
+// Twiddle tables are [n_sub, N] uint32 Shoup pairs (w, w'): stage m reads
+// entries [m, 2m).
 //
 // What bounds it on this card: a row of N residues is read once and
-// written once (16N bytes as int64) beside its prime's twiddle pairs (8N
-// bytes), and takes N/2 log2(N) butterflies of ~14 32-bit integer
-// operations. At Sobel's level 0 ([11, 16384], batch 1) that is 4.3 MB
-// (1.3 us at 3.35 TB/s) against 17.7M operations (1.1 us at the 16.7e12
-// int32 op/s of 132 SMs x 64 INT32 lanes): bytes, narrowly. At batch 1
+// written once (8N bytes) beside its prime's twiddle pairs (8N bytes), and
+// takes N/2 log2(N) butterflies of ~14 32-bit integer operations. At
+// Sobel's level 0 ([11, 16384], batch 1) that is 2.9 MB (0.86 us at 3.35
+// TB/s) against 17.7M operations (1.06 us at the 16.7e12 int32 op/s of 132
+// SMs x 64 INT32 lanes): operations, narrowly. At batch 1
 // the main path calls it on 2 to 12 rows in most launches, so one block
 // per row would leave most of the 132 SMs idle and walk each row's 14
 // stages on one SM.
@@ -39,7 +40,8 @@
 //   distributed shared memory). One cluster barrier, then the remaining
 //   log2 N - 3 stages are local to each segment: register passes of 3
 //   stages (ntt_fwd_pass with top = C + b), the last of which stores its
-//   groups, contiguous by then, to device memory as 16-byte words.
+//   groups, contiguous by then, to device memory as 16-byte words (one
+//   8-byte word a group when the last pass has one stage).
 //   Inverse: the mirror image. The first local pass loads contiguous
 //   groups from device memory, the local passes run the first log2 N - 3
 //   stages, a cluster barrier, then the last 3 stages on the S-strided
@@ -111,10 +113,11 @@ struct Seg {
 
 // The forward's last pass over a segment of L: its groups of 2^RP are
 // contiguous (group g at [g 2^RP, (g + 1) 2^RP), twiddle blocks led by
-// kb0 + g), and go from registers straight to dst as 16-byte words.
+// kb0 + g), and go from registers straight to dst as 16-byte words (a
+// group of 2 as one 8-byte word).
 template <int RP>
 __device__ __forceinline__ void fwd_store_pass(
-    const uint32_t* s, int64_t* __restrict__ dst,
+    const uint32_t* s, uint32_t* __restrict__ dst,
     const uint32_t* __restrict__ wr, const uint32_t* __restrict__ wpr,
     uint32_t q, int L, int kb0) {
   constexpr int G = 1 << RP;
@@ -123,14 +126,20 @@ __device__ __forceinline__ void fwd_store_pass(
 #pragma unroll
     for (int u = 0; u < G; ++u) v[u] = s[swz((g << RP) + u)];
     fwd_group<RP>(v, wr, wpr, q, kb0 + g);
-    longlong2* d = reinterpret_cast<longlong2*>(dst + (g << RP));
+    if constexpr (G >= 4) {
+      uint4* d = reinterpret_cast<uint4*>(dst + (g << RP));
 #pragma unroll
-    for (int u = 0; u < G; u += 2) d[u / 2] = make_longlong2(v[u], v[u + 1]);
+      for (int u = 0; u < G; u += 4)
+        d[u / 4] = make_uint4(v[u], v[u + 1], v[u + 2], v[u + 3]);
+    } else {
+      *reinterpret_cast<uint2*>(dst + (g << RP)) = make_uint2(v[0], v[1]);
+    }
   }
 }
 
 __global__ void __launch_bounds__(1024)
-    ntt_fwd_kernel(const int64_t* __restrict__ in, int64_t* __restrict__ out,
+    ntt_fwd_kernel(const uint32_t* __restrict__ in,
+                   uint32_t* __restrict__ out,
                    const uint32_t* __restrict__ w,
                    const uint32_t* __restrict__ wp,
                    const uint32_t* __restrict__ qs, int n_sub, int logn) {
@@ -143,7 +152,7 @@ __global__ void __launch_bounds__(1024)
   const uint32_t q = qs[sg.p];
   const uint32_t* wr = w + ((size_t)sg.p << logn);
   const uint32_t* wpr = wp + ((size_t)sg.p << logn);
-  const int64_t* src = in + sg.row;
+  const uint32_t* src = in + sg.row;
 
   // The first 3 stages, on the S-strided groups of the whole row; the
   // owner of element u of a group is segment u >> (3 - c).
@@ -156,7 +165,7 @@ __global__ void __launch_bounds__(1024)
     uint32_t v[G0];
     if (j < per) {
 #pragma unroll
-      for (int u = 0; u < G0; ++u) v[u] = (uint32_t)src[g + (u << ls)];
+      for (int u = 0; u < G0; ++u) v[u] = src[g + (u << ls)];
       fwd_group<kPassLog>(v, wr, wpr, q, 1);
     }
     if (j0 == 0) cluster_wait();
@@ -179,14 +188,15 @@ __global__ void __launch_bounds__(1024)
   const int last = tail ? tail : kPassLog;
   for (; s0 + last < sg.logl; s0 += kPassLog)
     ntt_fwd_pass<kPassLog>(s, wr, wpr, q, sg.logl, s0, top);
-  int64_t* dst = out + sg.row + ((size_t)sg.b << sg.logl);
+  uint32_t* dst = out + sg.row + ((size_t)sg.b << sg.logl);
   if (last == 1) fwd_store_pass<1>(s, dst, wr, wpr, q, sg.L, top << s0);
   if (last == 2) fwd_store_pass<2>(s, dst, wr, wpr, q, sg.L, top << s0);
   if (last == 3) fwd_store_pass<3>(s, dst, wr, wpr, q, sg.L, top << s0);
 }
 
 __global__ void __launch_bounds__(1024)
-    ntt_inv_kernel(const int64_t* __restrict__ in, int64_t* __restrict__ out,
+    ntt_inv_kernel(const uint32_t* __restrict__ in,
+                   uint32_t* __restrict__ out,
                    const uint32_t* __restrict__ w,
                    const uint32_t* __restrict__ wp,
                    const uint32_t* __restrict__ qs,
@@ -202,16 +212,17 @@ __global__ void __launch_bounds__(1024)
 
   // The first log2 N - 3 stages, segment-local. The first pass loads its
   // contiguous groups of 8 from device memory as 16-byte words.
-  const int64_t* src = in + sg.row + ((size_t)sg.b << sg.logl);
+  const uint32_t* src = in + sg.row + ((size_t)sg.b << sg.logl);
   for (int g = threadIdx.x; g < (sg.L >> kPassLog); g += blockDim.x) {
     uint32_t v[1 << kPassLog];
-    const longlong2* d = reinterpret_cast<const longlong2*>(
-        src + (g << kPassLog));
+    const uint4* d = reinterpret_cast<const uint4*>(src + (g << kPassLog));
 #pragma unroll
-    for (int u = 0; u < (1 << kPassLog); u += 2) {
-      const longlong2 x = d[u / 2];
-      v[u] = (uint32_t)x.x;
-      v[u + 1] = (uint32_t)x.y;
+    for (int u = 0; u < (1 << kPassLog); u += 4) {
+      const uint4 x = d[u / 4];
+      v[u] = x.x;
+      v[u + 1] = x.y;
+      v[u + 2] = x.z;
+      v[u + 3] = x.w;
     }
     inv_group<kPassLog>(v, wr, wpr, q,
                         (top << (sg.logl - kPassLog)) + g, false, 0, 0);
@@ -238,7 +249,7 @@ __global__ void __launch_bounds__(1024)
   constexpr int G0 = 1 << kPassLog;
   const int per = 1 << (ls - sg.c);
   const uint32_t nv = ninv[sg.p], nvp = ninvp[sg.p];
-  int64_t* dst = out + sg.row;
+  uint32_t* dst = out + sg.row;
   for (int j = threadIdx.x; j < per; j += blockDim.x) {
     const int g = sg.b * per + j;
     uint32_t v[G0];
@@ -249,7 +260,7 @@ __global__ void __launch_bounds__(1024)
     }
     inv_group<kPassLog>(v, wr, wpr, q, 1, true, nv, nvp);
 #pragma unroll
-    for (int u = 0; u < G0; ++u) dst[g + (u << ls)] = (int64_t)v[u];
+    for (int u = 0; u < G0; ++u) dst[g + (u << ls)] = v[u];
   }
   // No block exits while another may still read its shared memory.
   cluster_arrive();
@@ -400,8 +411,8 @@ int eva_ntt_fwd(const void* in, void* out, const void* w, const void* wp,
   cudaError_t err = launch_cluster(false, logn, cluster, &c);
   if (err != cudaSuccess) return (int)err;
   Launch l(logn, c, rows, (cudaStream_t)stream);
-  err = cudaLaunchKernelEx(&l.cfg, ntt_fwd_kernel, (const int64_t*)in,
-                           (int64_t*)out, (const uint32_t*)w,
+  err = cudaLaunchKernelEx(&l.cfg, ntt_fwd_kernel, (const uint32_t*)in,
+                           (uint32_t*)out, (const uint32_t*)w,
                            (const uint32_t*)wp, (const uint32_t*)q, n_sub,
                            logn);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
@@ -418,8 +429,8 @@ int eva_ntt_inv(const void* in, void* out, const void* w, const void* wp,
   cudaError_t err = launch_cluster(true, logn, cluster, &c);
   if (err != cudaSuccess) return (int)err;
   Launch l(logn, c, rows, (cudaStream_t)stream);
-  err = cudaLaunchKernelEx(&l.cfg, ntt_inv_kernel, (const int64_t*)in,
-                           (int64_t*)out, (const uint32_t*)w,
+  err = cudaLaunchKernelEx(&l.cfg, ntt_inv_kernel, (const uint32_t*)in,
+                           (uint32_t*)out, (const uint32_t*)w,
                            (const uint32_t*)wp, (const uint32_t*)q,
                            (const uint32_t*)ninv, (const uint32_t*)ninvp,
                            n_sub, logn);

@@ -12,13 +12,14 @@ Each digit needs a fast base extension, n_ext limb NTTs and a
 multiply-accumulate against its key slice; the digits are independent
 until the final accumulation, a modular sum over digits.
 
-The modular all-reduce: residues are int64 below 2^31, so the plain
-integer SUM of one plane per rank is below 2^63 for any world below
-2^32, and reducing it mod q gives the modular sum exactly. A modular
-sum is unique, so this equals the JAX package's butterfly of ppermutes
-and add_mods (which must avoid a raw 32-bit psum, since that wraps mod
-2^32) bit for bit. The reduce-scatter keeps JAX's form: one
-all_to_all_single and local modular adds.
+The modular all-reduce: residues are int32 tensors of uint32 bits
+(backend/modmath.py), and a raw 32-bit SUM all-reduce would wrap mod
+2^32 rather than mod q (the reason the JAX package runs a butterfly of
+ppermutes and add_mods). So each rank all-gathers the ranks' planes and
+folds them with the level ops' modular add, in rank order: the CUDA
+kernel E1 on the card, its plain version on the CPU. A modular sum is
+unique, so this equals the JAX butterfly bit for bit. The reduce-scatter
+keeps JAX's form: one all_to_all_single and local modular adds.
 
 The post-accumulation tail (extended-basis iNTT, division by P, final
 NTT) runs replicated on every rank. The NTTs are the port's
@@ -33,25 +34,30 @@ import torch
 import torch.distributed as dist
 
 from ..backend.executor_torch import (DeviceKeys, _ks_dev_tables,
-                                      _ks_dp_tables)
+                                      _ks_dp_tables, _to_dev)
 from ..backend.ks import divide_last_planes
-from ..backend.modmath import add_mod
-from ..backend.tables import level_ops
+from ..backend.modmath import upload
+from ..backend.tables import DeviceLevelOps, level_ops
 from ..crypto.context import CKKSContext
 from ..crypto.keys import KSwitchKey
 from .sharding import axis_group, axis_index, axis_size, mesh_device
 
 
-def _modular_all_reduce(x: torch.Tensor, q, group) -> torch.Tensor:
-    """Modular sum of `x` over the ranks of `group`, on every rank:
-    an int64 SUM all-reduce of residues below 2^31, then mod q ([n_sub,
-    1] per-row moduli)."""
-    out = x.contiguous().clone()
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
-    return out % q
+def _modular_all_reduce(x: torch.Tensor, ops: DeviceLevelOps,
+                        group) -> torch.Tensor:
+    """Modular sum of `x` ([..., n_sub, N] residues of the primes of
+    `ops`) over the ranks of `group`, on every rank: an all-gather, then
+    the ranks' planes added in rank order with ops.add."""
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    acc = parts[0]
+    for part in parts[1:]:
+        acc = ops.add(acc, part)
+    return acc
 
 
-def modular_reduce_scatter(x: torch.Tensor, q, group) -> torch.Tensor:
+def modular_reduce_scatter(x: torch.Tensor, ops: DeviceLevelOps,
+                           group) -> torch.Tensor:
     """Modular reduce-scatter along the LAST (ring) axis: rank i of
     `group` ends with the i-th N/n_dev chunk of the modular sum over the
     group. One all-to-all (each rank keeps 1/n_dev, sends the rest) and
@@ -67,7 +73,7 @@ def modular_reduce_scatter(x: torch.Tensor, q, group) -> torch.Tensor:
     dist.all_to_all_single(recv, parts, group=group)
     acc = recv[0]
     for j in range(1, n_dev):
-        acc = add_mod(acc, recv[j], q)
+        acc = ops.add(acc, recv[j])
     return acc
 
 
@@ -81,8 +87,8 @@ def modular_all_gather(x: torch.Tensor, group) -> torch.Tensor:
         x.shape[:-1] + (n_dev * x.shape[-1],))
 
 
-def hierarchical_modular_all_reduce(x: torch.Tensor, q, ici_group,
-                                    dcn_group) -> torch.Tensor:
+def hierarchical_modular_all_reduce(x: torch.Tensor, ops: DeviceLevelOps,
+                                    ici_group, dcn_group) -> torch.Tensor:
     """Two-level modular all-reduce for accumulators sharded over an
     intra-node axis (ici_group, NVLink) x a cross-node axis (dcn_group):
 
@@ -96,11 +102,11 @@ def hierarchical_modular_all_reduce(x: torch.Tensor, q, ici_group,
     n_ici = dist.get_world_size(ici_group)
     n_dcn = dist.get_world_size(dcn_group)
     if n_ici == 1:
-        return _modular_all_reduce(x, q, dcn_group)
+        return _modular_all_reduce(x, ops, dcn_group)
     if n_dcn == 1:
-        return _modular_all_reduce(x, q, ici_group)
-    chunk = modular_reduce_scatter(x, q, ici_group)
-    chunk = _modular_all_reduce(chunk, q, dcn_group)
+        return _modular_all_reduce(x, ops, ici_group)
+    chunk = modular_reduce_scatter(x, ops, ici_group)
+    chunk = _modular_all_reduce(chunk, ops, dcn_group)
     return modular_all_gather(chunk, ici_group)
 
 
@@ -142,13 +148,10 @@ class ShardedKeySwitch:
         shard = axis_index(mesh, axis)
         mine = slice(shard * loc, (shard + 1) * loc)
 
-        def up(arr):
-            return torch.from_numpy(
-                np.ascontiguousarray(arr).astype(np.int64)).to(device)
-
-        self.inv_mont = up(inv_mont)  # replicated: y on every rank
-        self.member = up(member[mine])
-        self.conv_m = up(conv_m[mine])
+        # inv_mont is replicated (y on every rank); member an int64 index.
+        self.inv_mont = _to_dev(inv_mont, device)
+        self.member = _to_dev(member[mine], device)
+        self.conv_m = _to_dev(conv_m[mine], device)
         self.k0, self.k1 = DeviceKeys(ctx, None, device).dp_layout(
             ksk, level, n_dev, shard)
 
@@ -167,21 +170,20 @@ class ShardedKeySwitch:
         return level_ops(prim, ctx.n, self.device).ntt(x)
 
     def __call__(self, poly) -> Tuple[torch.Tensor, torch.Tensor]:
-        """poly: [n_cur, N] NTT-domain residues (numpy or tensor; the
-        same on every rank). Returns (d0, d1) NTT-domain planes at the
-        same level, on this rank's device."""
+        """poly: [n_cur, N] NTT-domain residues (uint64 numpy, or an
+        int32 tensor; the same on every rank). Returns (d0, d1)
+        NTT-domain planes at the same level, on this rank's device."""
         ctx, dev, ext = self.ctx, self.dev, self.ext
         if isinstance(poly, np.ndarray):
-            poly = torch.from_numpy(poly.astype(np.int64))
-        poly = poly.to(self.device, torch.int64)
-        n_ext = len(self.basis)
+            poly = upload(poly, self.device)
+        poly = poly.to(self.device)
         y = dev.mul_mont(dev.intt(poly), self.inv_mont)  # [n_cur, N]
-        # Local digits: gather member rows, base-extend, sum members.
+        # Local digits: gather member rows, base-extend (the rows
+        # broadcast over the extended basis), sum members.
         loc, alpha = self.member.shape
         ym = torch.index_select(y, 0, self.member.reshape(-1))
         ym = ym.reshape(loc, alpha, 1, ctx.n)
-        prod = ext.mul_mont(ym.expand(loc, alpha, n_ext, ctx.n),
-                            self.conv_m)
+        prod = ext.mul_mont(ym, self.conv_m)
         acc = prod[:, 0]
         for k in range(1, alpha):
             acc = ext.add(acc, prod[:, k])
@@ -194,7 +196,7 @@ class ShardedKeySwitch:
             return s
 
         a0 = _modular_all_reduce(digit_sum(ext.mul_mont(d, self.k0)),
-                                 ext.q, self.group)
+                                 ext, self.group)
         a1 = _modular_all_reduce(digit_sum(ext.mul_mont(d, self.k1)),
-                                 ext.q, self.group)
+                                 ext, self.group)
         return self._tail(a0), self._tail(a1)

@@ -25,9 +25,12 @@ modular sums and products as the single-device transforms, so the
 gathered output is the port's DeviceLevelOps.ntt output, in global
 bit-reversed order (rev(k1 + N1*k2) = rev_N1(k1)*N2 + rev_N2(k2)).
 
-The phases are plain PyTorch (as the JAX module's are plain jnp): no
-TPU kernel stands behind them. Each stage is one pass over every block
-at once (the JAX module loops over the blocks)."""
+The phases are the JAX module's jnp stages (no TPU kernel stands behind
+them): each stage's modular adds, subtracts and Shoup multiplies go
+through the level ops of the primes (DeviceLevelOps: the CUDA kernel E1
+on the card, its plain version on the CPU), over every block at once
+(the JAX module loops over the blocks). Planes are int32 tensors of
+uint32 residues (backend/modmath.py)."""
 
 from __future__ import annotations
 
@@ -38,8 +41,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..backend.modmath import shoup_mul, shoup_stack
-from ..backend.tables import _powers
+from ..backend.modmath import shoup_stack, upload
+from ..backend.tables import _powers, level_ops
 from ..crypto.ntt import _bit_reverse_perm, get_table
 
 LANES = 128
@@ -148,44 +151,56 @@ class ShardedNTT:
         nl, nr = self.n2 // n_dev, self.n1 // n_dev
         lanes, rows = slice(i * nl, (i + 1) * nl), slice(i * nr, (i + 1) * nr)
 
-        def up(arr):
-            return torch.from_numpy(
-                np.ascontiguousarray(arr).astype(np.int64)).to(device)
+        def pair(arr):
+            """A [n_sub, 2, ...] Shoup pair table as (w, wp) on device."""
+            return tuple(upload(arr[:, k], device) for k in range(2))
 
-        self.q = up(t.q[:, None, None])                # [n_sub, 1, 1]
-        self.tw_fwd = up(t.tw_fwd[..., lanes])         # [n_sub, 2, n1, nl]
-        self.tw_inv = up(t.tw_inv[..., lanes])
-        self.corr_fwd = up(t.corr_fwd[..., lanes])
-        self.corr_inv = up(t.corr_inv[..., rows])      # [n_sub, 2, n2, nr]
-        self.st1_f = up(t.st1_f[..., None])            # [n_sub, 2, n1, 1]
-        self.st1_i = up(t.st1_i[..., None])
-        self.st2_f = up(t.st2_f[..., None])
-        self.st2_i = up(t.st2_i[..., None])
+        def stages(arr):
+            """A packed [n_sub, 2, size] stage table as {half: (w, wp)},
+            each [n_sub, 1, half, 1]: the twiddles of the stage with
+            half-block `half`, shared by every block."""
+            out, h = {}, 1
+            while h < arr.shape[-1]:
+                out[h] = pair(arr[:, :, None, h - 1:2 * h - 1, None])
+                h <<= 1
+            return out
+
+        # The level ops of the primes run every stage's modular arithmetic.
+        self.ops = level_ops(self.primes, n, device)
+        self.tw_fwd = pair(t.tw_fwd[..., lanes])       # [n_sub, n1, nl]
+        self.tw_inv = pair(t.tw_inv[..., lanes])
+        self.corr_fwd = pair(t.corr_fwd[..., lanes])
+        self.corr_inv = pair(t.corr_inv[..., rows])    # [n_sub, n2, nr]
+        self.st1_f = stages(t.st1_f)
+        self.st1_i = stages(t.st1_i)
+        self.st2_f = stages(t.st2_f)
+        self.st2_i = stages(t.st2_i)
 
     def _mul_pair(self, x, pair):
-        """Shoup multiply by a [n_sub, 2, ...] pair table."""
-        return shoup_mul(x, pair[:, 0], pair[:, 1], self.q)
+        """Shoup multiply of [..., n_sub, a, b] planes by a (w, wp) pair
+        table [n_sub, a, b]."""
+        return self.ops.mul_shoup(x, *pair, prime_dim=-3)
 
     def ntt(self, x):
         """x: local [..., n_sub, n1, n2/D] coefficient planes (natural
         order, lane-sharded). Returns row-sharded NTT planes."""
         x = self._mul_pair(x, self.tw_fwd)
-        x = _sub_dif_rows(x, self.st1_f, self.q, self.n1)
+        x = _sub_dif_rows(self.ops, x, self.st1_f, self.n1)
         x = self._mul_pair(x, self.corr_fwd)
         x = _all_to_all(x, self.group, split=-2, concat=-1)  # [n1/D, n2]
         x = x.transpose(-1, -2)
-        x = _sub_dif_rows(x, self.st2_f, self.q, self.n2)
+        x = _sub_dif_rows(self.ops, x, self.st2_f, self.n2)
         return x.transpose(-1, -2).contiguous()
 
     def intt(self, x):
         """x: local [..., n_sub, n1/D, n2] NTT planes (bit-rev order,
         row-sharded). Returns lane-sharded coefficient planes."""
         x = x.transpose(-1, -2)                  # [.., n2, n1/D]
-        x = _sub_dit_rows(x, self.st2_i, self.q, self.n2)
+        x = _sub_dit_rows(self.ops, x, self.st2_i, self.n2)
         x = self._mul_pair(x, self.corr_inv)
         x = _all_to_all(x, self.group, split=-2, concat=-1)  # [n2/D, n1]
         x = x.transpose(-1, -2)                  # [.., n1, n2/D]
-        x = _sub_dit_rows(x, self.st1_i, self.q, self.n1)
+        x = _sub_dit_rows(self.ops, x, self.st1_i, self.n1)
         return self._mul_pair(x, self.tw_inv).contiguous()
 
 
@@ -195,40 +210,44 @@ def _blocks(x, m: int):
     return x.reshape(x.shape[:-2] + (x.shape[-2] // m, m, x.shape[-1]))
 
 
-def _sub_dif_rows(x, st, q, size):
+# The prime axis of a stage's blocks [..., n_sub, size/m, m, lanes].
+_BLOCK_PRIME_DIM = -4
+
+
+def _sub_dif_rows(ops, x, st, size):
     """Per-limb DIF over axis -2 (natural in, bit-reversed out).
-    x: [..., n_sub, size, lanes]; st: [n_sub, 2, size, 1]; q: [n_sub, 1,
-    1]. Every block of a stage uses the same twiddles."""
-    q4 = q[:, None]
+    x: [..., n_sub, size, lanes]; st: {half: (w, wp)} stage tables
+    [n_sub, 1, half, 1]; ops: the primes' level ops. Every block of a
+    stage uses the same twiddles."""
+    dim = _BLOCK_PRIME_DIM
     m = size
     while m >= 2:
         half = m >> 1
-        w = st[:, 0, None, half - 1:2 * half - 1]   # [n_sub, 1, half, 1]
-        wp = st[:, 1, None, half - 1:2 * half - 1]
+        w, wp = st[half]
         xb = _blocks(x, m)
-        lo, hi = xb[..., :half, :], xb[..., half:, :]
-        s = lo + hi
-        d = torch.where(lo >= hi, lo - hi, lo + q4 - hi)
-        x = torch.cat([torch.where(s >= q4, s - q4, s),
-                       shoup_mul(d, w, wp, q4)], dim=-2).reshape(x.shape)
+        # The halves once as contiguous planes, which the ops take.
+        lo = xb[..., :half, :].contiguous()
+        hi = xb[..., half:, :].contiguous()
+        d = ops.sub(lo, hi, prime_dim=dim)
+        x = torch.cat([ops.add(lo, hi, prime_dim=dim),
+                       ops.mul_shoup(d, w, wp, prime_dim=dim)],
+                      dim=-2).reshape(x.shape)
         m >>= 1
     return x
 
 
-def _sub_dit_rows(x, st, q, size):
+def _sub_dit_rows(ops, x, st, size):
     """Per-limb DIT over axis -2 (inverse of _sub_dif_rows)."""
-    q4 = q[:, None]
+    dim = _BLOCK_PRIME_DIM
     m = 2
     while m <= size:
         half = m >> 1
-        w = st[:, 0, None, half - 1:2 * half - 1]
-        wp = st[:, 1, None, half - 1:2 * half - 1]
+        w, wp = st[half]
         xb = _blocks(x, m)
-        lo = xb[..., :half, :]
-        hi = shoup_mul(xb[..., half:, :], w, wp, q4)
-        s = lo + hi
-        x = torch.cat([torch.where(s >= q4, s - q4, s),
-                       torch.where(lo >= hi, lo - hi, lo + q4 - hi)],
+        lo = xb[..., :half, :].contiguous()
+        hi = ops.mul_shoup(xb[..., half:, :], w, wp, prime_dim=dim)
+        x = torch.cat([ops.add(lo, hi, prime_dim=dim),
+                       ops.sub(lo, hi, prime_dim=dim)],
                       dim=-2).reshape(x.shape)
         m <<= 1
     return x

@@ -221,12 +221,21 @@ def batch_shard(mesh) -> Tuple[int, int]:
     return count, index
 
 
+def _residues(planes) -> torch.Tensor:
+    """Residue planes as a tensor: a numpy array (values below 2^32) as
+    int32 uint32 bits (backend/modmath.py), a tensor as it is."""
+    if isinstance(planes, np.ndarray):
+        return torch.from_numpy(
+            np.ascontiguousarray(planes, dtype=np.uint32).view(np.int32))
+    return torch.as_tensor(planes)
+
+
 def shard_batch(planes, mesh) -> torch.Tensor:
-    """This rank's slice of [batch, n_sub, N] planes: batch over the
-    batch axes, limbs over "limb" when it is > 1 and divides n_sub (as
-    eva_tpu.parallel.shard_batch places them). The batch must divide
-    evenly."""
-    planes = torch.as_tensor(planes)
+    """This rank's slice of [batch, n_sub, N] planes (numpy residues or
+    an int32 tensor): batch over the batch axes, limbs over "limb" when
+    it is > 1 and divides n_sub (as eva_tpu.parallel.shard_batch places
+    them). The batch must divide evenly."""
+    planes = _residues(planes)
     count, index = batch_shard(mesh)
     if planes.shape[0] % count:
         raise ValueError(f"batch {planes.shape[0]} does not split over "
@@ -242,8 +251,9 @@ def shard_batch(planes, mesh) -> torch.Tensor:
 
 
 def replicated(arr, mesh) -> torch.Tensor:
-    """The whole of `arr` on this rank's device of `mesh`."""
-    return torch.as_tensor(arr).to(mesh_device(mesh))
+    """The whole of `arr` (numpy residues or an int32 tensor) on this
+    rank's device of `mesh`."""
+    return _residues(arr).to(mesh_device(mesh))
 
 
 def batch_pipeline_step(dev: DeviceLevelOps, mesh=None):
@@ -271,7 +281,7 @@ def batch_pipeline_step(dev: DeviceLevelOps, mesh=None):
         if mesh is not None:
             axes = batch_axes(mesh)
             for name in (axes if isinstance(axes, tuple) else (axes,)):
-                batch_sum = _modular_all_reduce(batch_sum, dev.q,
+                batch_sum = _modular_all_reduce(batch_sum, dev,
                                                 axis_group(mesh, name))
         return c0, c1, c2, batch_sum
 

@@ -7,20 +7,20 @@ Port of eva_tpu/profiling.py. Run on the card:
     python -m eva_tpu_torch.profiling estimate [sobel|harris|poly]
     python -m eva_tpu_torch.profiling mesh [sobel|harris|poly] [cards]
 
-Times each ciphertext primitive of the port (the elementwise int64
-modular ops in PyTorch, the CUDA NTT kernels K1/K2, the automorphism
-gather, the rescale, and a full rotation through the fused key-switch
-kernels K4/K5) with the chained-dependency + host-read slope method and
-reports achieved bytes/s against the card's HBM roofline, measured in
-the same process with a large elementwise pass. `mesh` prints
-recommend_mesh's meshes for a program on that many cards beside the
-collective constants (COLLECTIVE_CONSTANTS) and the measured one-rank
-NCCL overhead. All three raise without a CUDA device;
+Times each ciphertext primitive of the port (the dyadic add and
+multiply: the CUDA kernel E1; the CUDA NTT kernels K1/K2; the
+automorphism gather; the rescale: E3; and a full rotation through the
+fused key-switch kernels K4/K5) with the chained-dependency + host-read
+slope method and reports achieved bytes/s against the card's HBM
+roofline, measured in the same process with a large elementwise pass.
+`mesh` prints recommend_mesh's meshes for a program on that many cards
+beside the collective constants (COLLECTIVE_CONSTANTS) and the measured
+one-rank NCCL overhead. All three raise without a CUDA device;
 `estimate_program` and `recommend_mesh` are host-only.
 
-Byte counts are the port's: residues live on the device as int64, so a
-residue moves RESIDUE_BYTES = 8 bytes (the JAX package counts 4 for its
-uint32 planes)."""
+Byte counts are the port's: residues live on the device as int32
+tensors of their uint32 bits, so a residue moves RESIDUE_BYTES = 4 bytes,
+as in the JAX package's uint32 planes."""
 
 from __future__ import annotations
 
@@ -31,9 +31,8 @@ from typing import Callable, Dict
 
 import numpy as np
 
-# Bytes one residue moves on the device: int64 storage. Becomes 4 with
-# 32-bit residue storage.
-RESIDUE_BYTES = 8
+# Bytes one residue moves on the device: 32-bit storage.
+RESIDUE_BYTES = 4
 
 
 def _slope_time(fn: Callable, x0, red, reps_short=4, reps_long=24) -> float:
@@ -101,6 +100,7 @@ def profile(n: int = 16384, n_entries: int = 6, device=None, *,
     from .backend.executor_torch import DevPerm, TorchProgram
     from .backend.keygen import DeviceKeygen
     from .backend.ks import divide_last_planes
+    from .backend.modmath import upload
     from .backend.tables import level_ops
     from .crypto import keys as K
     from .crypto.context import get_context
@@ -117,10 +117,10 @@ def profile(n: int = 16384, n_entries: int = 6, device=None, *,
     rng = np.random.default_rng(0)
 
     def planes(rows):
-        out = np.empty((rows, n_sub, n), dtype=np.int64)
+        out = np.empty((rows, n_sub, n), dtype=np.uint32)
         for i, q in enumerate(primes):
             out[:, i, :] = rng.integers(0, q, (rows, n))
-        return torch.from_numpy(out).to(device)
+        return upload(out, device)
 
     x = planes(batch)
     other = planes(batch)
@@ -191,10 +191,11 @@ def calibration(results, hbm: float, n_sub: int) -> Dict[str, float]:
 
 
 # estimate_program's default calibration: calibration() of one
-# profile() at N = 16384, 6 data entries, on an NVIDIA H100 80GB HBM3 at
-# a 700 W power limit (`python -m eva_tpu_torch.profiling`).
-H100_CALIBRATION = {"ntt_row_us": 0.1546, "perm_row_us": 0.1057,
-                    "hbm_gbs": 2933.0, "hbm_eff": 0.2242}
+# profile() at N = 16384, 6 data entries, 32-bit residues, on an NVIDIA
+# H100 80GB HBM3 at a 700 W power limit (chip_smoke.py's profiling phase;
+# `python -m eva_tpu_torch.profiling` prints the same).
+H100_CALIBRATION = {"ntt_row_us": 0.1561, "perm_row_us": 0.1148,
+                    "hbm_gbs": 2920.6, "hbm_eff": 0.3412}
 
 
 def estimate_program(compiled, params, *,
@@ -224,8 +225,8 @@ def estimate_program(compiled, params, *,
                    underestimates the NTT time of an execute;
       perm_row_us  one row of the automorphism gather (index_select);
       hbm_gbs      the card's HBM roofline, measure_hbm_roofline();
-      hbm_eff      the fraction of it the int64 modular add and multiply
-                   reach (several PyTorch kernels each).
+      hbm_eff      the fraction of it the modular add and multiply
+                   reach (one E1 launch each).
     Returns (per-class dict {class: (count, seconds)}, total seconds)."""
     from .crypto.context import get_context
     from .crypto.keys import default_ks_alpha

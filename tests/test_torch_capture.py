@@ -140,8 +140,8 @@ def test_capture_key(served, monkeypatch):
 
 
 def test_captured_inputs_refuse_other_shapes_and_names():
-    entry = et._Captured({"t1": [torch.empty(2, 3, dtype=torch.int64)]},
-                         {"t2": torch.empty(3, dtype=torch.int64)}, {})
+    entry = et._Captured({"t1": [torch.empty(2, 3, dtype=torch.int32)]},
+                         {"t2": torch.empty(3, dtype=torch.int32)}, {})
     with pytest.raises(ValueError, match="input shape"):
         entry.fill({"t1": [np.zeros((2, 4), np.uint64)]},
                    {"t2": np.zeros(3, np.uint64)})

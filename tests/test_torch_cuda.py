@@ -1,7 +1,8 @@
 """The CUDA kernels (eva_tpu_torch/csrc/ntt.cu: the NTT; csrc/ks.cu: the
-fused key switch's MAC and epilogue) against their plain PyTorch
-versions, and their wrappers' refusals, on a CUDA GPU; every test skips
-without one.
+fused key switch's MAC and epilogue; csrc/modmath.cu: the elementwise
+modular ops E1, the tensor product E2, the divide-last E3) against their
+plain PyTorch versions, and their wrappers' refusals, on a CUDA GPU;
+every test skips without one. Residues are int32 tensors of uint32 bits.
 
 This file imports neither JAX nor eva_tpu, so it runs on a machine that
 has only PyTorch with CUDA (conftest.py imports JAX, hence --noconftest):
@@ -13,8 +14,10 @@ import numpy as np
 import pytest
 import torch
 
-from eva_tpu_torch.backend import ks, ks_cuda, ntt_cuda
+from eva_tpu_torch.backend import ks, ks_cuda, modmath_cuda, ntt_cuda
+from eva_tpu_torch.backend import modmath as M
 from eva_tpu_torch.backend.executor_torch import _ks_dev_tables, _ks_maps
+from eva_tpu_torch.backend.modmath import upload
 from eva_tpu_torch.backend.tables import DeviceLevelOps, level_ops
 from eva_tpu_torch.crypto.context import get_context
 from eva_tpu_torch.crypto.primes import build_chain
@@ -30,9 +33,12 @@ def cuda():
 
 
 def _planes(seed, primes, shape):
+    """Random reduced residues [..., len(primes), N] (shape = [..., N]),
+    as an int32 tensor of their uint32 bits on the CPU."""
     rng = np.random.default_rng(seed)
-    return torch.from_numpy(np.stack(
-        [rng.integers(0, q, shape) for q in primes], axis=-2))
+    return upload(np.stack(
+        [rng.integers(0, q, shape, dtype=np.uint64) for q in primes],
+        axis=-2), "cpu")
 
 
 # (N, rows, forced cluster size): the main path's row counts (1 to 13 at
@@ -92,8 +98,8 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         ntt_cuda.ntt_fwd(x[..., : n // 2].contiguous(), dev)
     with pytest.raises(ValueError, match="contiguous"):
         ntt_cuda.ntt_fwd(x.transpose(0, 1), dev)
-    with pytest.raises(ValueError, match="int64"):
-        ntt_cuda.ntt_inv(x.to(torch.int32), dev)
+    with pytest.raises(ValueError, match="int32"):
+        ntt_cuda.ntt_inv(x.to(torch.int64), dev)
     small = DeviceLevelOps(primes, 512, cuda)
     with pytest.raises(ValueError, match="power of two"):
         ntt_cuda.ntt_fwd(x[..., :512].contiguous(), small)
@@ -123,18 +129,19 @@ def _ks_inputs(dev, n, batch, alpha=2, n_key=2, seed=3):
     n_groups, _, conv_mont = _ks_dev_tables(ctx, 0, alpha)
     _, owner, _ = _ks_maps(ctx, 0, alpha)
     rng = np.random.default_rng(seed)
-    y = np.zeros((batch, n_groups * alpha, n), dtype=np.int64)
+    y = np.zeros((batch, n_groups * alpha, n), dtype=np.uint64)
     for t, q in enumerate(primes):
-        y[:, t] = rng.integers(0, q, (batch, n))
+        y[:, t] = rng.integers(0, q, (batch, n), dtype=np.uint64)
 
     def planes(lead, qs):
-        return torch.from_numpy(np.stack(
-            [rng.integers(0, q, lead + (n,)) for q in qs], axis=len(lead)))
+        return upload(np.stack(
+            [rng.integers(0, q, lead + (n,), dtype=np.uint64) for q in qs],
+            axis=len(lead)), "cpu")
 
     k0, k1 = (torch.stack([planes((), basis) for _ in range(n_groups)])
               for _ in range(2))
-    tensors = (torch.from_numpy(y).reshape(batch, n_groups, alpha, n), k0,
-               k1, torch.from_numpy(conv_mont[..., 0].astype(np.int64)),
+    tensors = (upload(y, "cpu").reshape(batch, n_groups, alpha, n), k0,
+               k1, upload(conv_mont[..., 0], "cpu"),
                torch.from_numpy(np.concatenate(
                    [owner, [-1] * n_key]).astype(np.int64)),
                planes((batch,), primes), planes((batch,), basis),
@@ -183,8 +190,10 @@ def test_cuda_key_switch_wrappers_reject_what_the_kernels_do_not_take(cuda):
         cuda, 1024, 2)
     with pytest.raises(ValueError, match="not on a CUDA device"):
         ks_cuda.ks_mac(y.cpu(), k0, k1, conv, owner, ext)
-    with pytest.raises(ValueError, match="int64"):
-        ks_cuda.ks_mac(y, k0.to(torch.int32), k1, conv, owner, ext)
+    with pytest.raises(ValueError, match="int32"):
+        ks_cuda.ks_mac(y, k0.to(torch.int64), k1, conv, owner, ext)
+    with pytest.raises(ValueError, match="int64"):  # owner is an index
+        ks_cuda.ks_mac(y, k0, k1, conv, owner.to(torch.int32), ext)
     with pytest.raises(ValueError, match="contiguous"):
         ks_cuda.ks_mac(y, k0, k1, conv, owner, ext, x_ntt.transpose(0, 1))
     with pytest.raises(ValueError, match="shape"):
@@ -198,6 +207,166 @@ def test_cuda_key_switch_wrappers_reject_what_the_kernels_do_not_take(cuda):
                             True)
     with pytest.raises(ValueError, match="n_key"):
         ks_cuda.ks_epilogue(acc0, acc1, ext, 0, True)
+
+
+# -- the elementwise kernels E1-E3 (csrc/modmath.cu) --------------------------
+
+# (N, leading dims, primes): Sobel's and Harris's level 0 (11 data primes
+# plus the special prime at rescale: 12; the extended basis: 13; Harris
+# 10), at batch 1 and 4, and N = 4096 and 32768.
+_EW_SHAPES = [(16384, (), 12), (16384, (4,), 13), (16384, (), 10),
+              (16384, (4,), 10), (4096, (2,), 12), (32768, (), 12)]
+_EW_OPS = ("add", "sub", "neg", "mul_mont", "mul", "shoup")
+
+
+def _ew_ops(n, n_sub, device):
+    primes = [q for e in build_chain([60, 20, 60, 60, 60, 60, 60], n)
+              for q in e.primes][:n_sub]
+    return DeviceLevelOps(primes, n, device)
+
+
+def _unreduced(seed, lead, n_sub, n):
+    """Values below 2^32, half of them at or above 2^31 (negative as
+    int32): the first operand of a Montgomery or Shoup multiply."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 2 ** 32, lead + (n_sub, n), dtype=np.uint64)
+    a[..., ::2] |= np.uint64(1 << 31)
+    return upload(a, "cpu")
+
+
+def _plain_ew(op, dev, *xs):
+    """The plain version of E1 op `op` on the same (CUDA) tensors."""
+    q, rinv, r2 = dev.q, dev.rinv, dev.r2
+    return {"add": lambda a, b: M.add_mod(a, b, q),
+            "sub": lambda a, b: M.sub_mod(a, b, q),
+            "neg": lambda a: M.neg_mod(a, q),
+            "mul_mont": lambda a, b: M.mont_mul(a, b, q, rinv),
+            "mul": lambda a, b, c: M.mul(a, b, q, rinv, c),
+            "shoup": lambda a, w, wp: M.shoup_mul(a, w, wp, q)}[op](*xs)
+
+
+@pytest.mark.parametrize("n,lead,n_sub", _EW_SHAPES)
+@pytest.mark.parametrize("op", _EW_OPS)
+def test_cuda_mod_ew_matches_plain(cuda, op, n, lead, n_sub):
+    """E1, bit for bit, with the second operand full, broadcast over the
+    batch (a plaintext) and a per-row constant [n_sub, 1]; the first
+    operand also unreduced (up to 2^32) for the multiplies, and rows
+    broadcast over the primes [.., 1, N] for add and sub."""
+    dev = _ew_ops(n, n_sub, cuda)
+    a = _planes(n + 1, dev.primes, lead + (n,)).to(cuda)
+    full = _planes(n + 2, dev.primes, lead + (n,)).to(cuda)
+    shared = _planes(n + 3, dev.primes, (n,)).to(cuda)
+    row = _planes(n + 4, dev.primes, (1,)).to(cuda)
+    firsts = [a]
+    if op in ("mul_mont", "mul", "shoup"):
+        firsts.append(_unreduced(n + 5, lead, n_sub, n).to(cuda))
+    seconds = [full, shared, row]
+    if op in ("add", "sub"):  # a row below the smallest prime, [.., 1, N]
+        seconds.append((_planes(n + 6, [min(dev.primes)], lead + (n,))
+                        .to(cuda)))
+    for x in firsts:
+        for b in seconds:
+            if op == "neg":
+                args = (x,)
+            elif op == "mul":
+                args = (x, b, dev.r2)
+            elif op == "shoup":
+                wp = upload(np.stack([
+                    M.shoup_pair(M.to_host(b[..., i, :]), q)[1]
+                    for i, q in enumerate(dev.primes)], axis=-2), cuda)
+                args = (x, b, wp)
+            else:
+                args = (x, b)
+            launches = modmath_cuda.LAUNCHES["mod_ew"]
+            got = modmath_cuda.mod_ew(op, dev, *args)
+            assert modmath_cuda.LAUNCHES["mod_ew"] == launches + 1
+            want = _plain_ew(op, dev, *args)
+            assert got.dtype == torch.int32 and got.shape == want.shape
+            assert torch.equal(got, want), (op, tuple(b.shape))
+
+
+def test_cuda_mod_ew_primes_along_an_earlier_dim(cuda):
+    """E1 with prime_dim -3 and -4 (the four-step NTT's [n_sub, a, b]
+    planes and its stage blocks), against the plain versions."""
+    n = 16384
+    dev = _ew_ops(n, 11, cuda)
+    x = _planes(1, dev.primes, (n,)).to(cuda).reshape(11, 128, 128)
+    y = _planes(2, dev.primes, (n,)).to(cuda).reshape(11, 128, 128)
+    q3, q4 = dev.q.reshape(11, 1, 1), dev.q.reshape(11, 1, 1, 1)
+    assert torch.equal(modmath_cuda.mod_ew("add", dev, x, y, prime_dim=-3),
+                       M.add_mod(x, y, q3))
+    xb, yb = x.reshape(11, 16, 8, 128), y.reshape(11, 16, 8, 128)
+    w = y[:, :1, :8].reshape(11, 1, 8, 1).contiguous()
+    wp = upload(np.stack([M.shoup_pair(M.to_host(w[i]), q)[1]
+                          for i, q in enumerate(dev.primes)]), cuda)
+    assert torch.equal(
+        modmath_cuda.mod_ew("sub", dev, xb, yb, prime_dim=-4),
+        M.sub_mod(xb, yb, q4))
+    assert torch.equal(
+        modmath_cuda.mod_ew("shoup", dev, xb, w, wp, prime_dim=-4),
+        M.shoup_mul(xb, w, wp, q4))
+
+
+@pytest.mark.parametrize("n,lead,n_sub", _EW_SHAPES)
+def test_cuda_tensor_product_matches_plain(cuda, n, lead, n_sub):
+    """E2, bit for bit, also with the b-side broadcast over the batch."""
+    dev = _ew_ops(n, n_sub, cuda)
+    a0, a1, b0, b1 = (_planes(n + k, dev.primes, lead + (n,)).to(cuda)
+                      for k in range(4))
+    for bb in ((b0, b1), (b0[..., :, :].reshape(-1, n_sub, n)[0],
+                          b1.reshape(-1, n_sub, n)[0])):
+        launches = modmath_cuda.LAUNCHES["tensor_product"]
+        got = modmath_cuda.tensor_product(dev, a0, a1, *bb)
+        assert modmath_cuda.LAUNCHES["tensor_product"] == launches + 1
+        want = M.tensor_product(a0, a1, *bb, dev.q, dev.rinv, dev.r2)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("n,lead,n_sub", _EW_SHAPES)
+def test_cuda_divide_last_matches_plain(cuda, n, lead, n_sub):
+    """E3 (the rescale's divide-and-round), bit for bit: [.., n, N] ->
+    [.., n - 1, N]."""
+    full = _ew_ops(n, n_sub, cuda)
+    rest = _ew_ops(n, n_sub - 1, cuda)
+    x = _planes(n + 7, full.primes, lead + (n,)).to(cuda)
+    launches = modmath_cuda.LAUNCHES["divide_last"]
+    got = ks.divide_last_planes(x, full.primes, rest)
+    assert modmath_cuda.LAUNCHES["divide_last"] == launches + 1
+    want = ks.divide_last_plain(x, full.primes, rest)
+    assert got.shape == lead + (n_sub - 1, n)
+    assert torch.equal(got, want)
+
+
+def test_cuda_modmath_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    dev = _ew_ops(1024, 3, cuda)
+    x = _planes(1, dev.primes, (2, 1024)).to(cuda)
+    with pytest.raises(ValueError, match="int32"):
+        modmath_cuda.mod_ew("add", dev, x.to(torch.int64), x)
+    with pytest.raises(ValueError, match="contiguous"):
+        modmath_cuda.mod_ew("add", dev, x, x.transpose(0, 1))
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        modmath_cuda.mod_ew("mul_mont", dev, x, x.cpu())
+    with pytest.raises(ValueError, match="broadcast"):
+        modmath_cuda.mod_ew("add", dev, x[:, :2].contiguous(),
+                            x[:, :2].contiguous())
+    with pytest.raises(ValueError, match="operands"):
+        modmath_cuda.mod_ew("mul", dev, x, x)
+    with pytest.raises(ValueError, match="int32"):
+        modmath_cuda.tensor_product(dev, x, x, x, x.to(torch.int64))
+    with pytest.raises(ValueError, match="a-side"):
+        modmath_cuda.tensor_product(dev, x, x[0], x, x)
+    rest = _ew_ops(1024, 2, cuda)
+    with pytest.raises(ValueError, match="does not end in"):
+        ks.divide_last_planes(x[:, :2].contiguous(), dev.primes, rest)
+    with pytest.raises(ValueError, match="int32"):
+        modmath_cuda.divide_last(x.to(torch.int64), dev.q[:2].contiguous(),
+                                 dev.primes[-1], rest)
+    # DeviceLevelOps on the card: a launch or a refusal, no plain call.
+    plain = dict(M.PLAIN_CALLS)
+    with pytest.raises(ValueError, match="int32"):
+        dev.add(x.to(torch.int64), x)
+    dev.add(x, x)
+    assert M.PLAIN_CALLS == plain
 
 
 # -- whole programs through captured CUDA graphs ------------------------------
@@ -425,7 +594,8 @@ def test_cuda_sharded_key_switch_one_shard_equals_host(nccl_world):
     mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("digit",))
     for level in (0, 2):
         primes = ctx.primes_at_level(level)
-        poly = _planes(level, primes, (ctx.n,)).numpy().astype(np.uint64)
+        poly = _planes(level, primes, (ctx.n,)).numpy().view(
+            np.uint32).astype(np.uint64)
         want = O._key_switch(ctx, poly, level, keys.relin)
         got = ShardedKeySwitch(ctx, keys.relin, level, mesh)(poly)
         for w, g in zip(want, got):

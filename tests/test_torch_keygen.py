@@ -17,6 +17,7 @@ from eva_tpu.backend.keygen import DeviceKeygen as DeviceKeygenJ
 from eva_tpu.crypto import keys as KJ
 from eva_tpu.crypto.context import CKKSContext as ContextJ
 from eva_tpu_torch.backend.keygen import DeviceKeygen
+from eva_tpu_torch.backend.modmath import upload
 from eva_tpu_torch.crypto import keys as K
 from eva_tpu_torch.crypto.context import CKKSContext
 
@@ -78,16 +79,17 @@ def test_engine_broadcast_shapes(contexts):
     ctx, _ = contexts
     s_rows, target, As, Es, facs = _randomness(ctx, 2, 5)
     eng = DeviceKeygen(ctx, device="cpu")
-    up = lambda a: torch.from_numpy(np.ascontiguousarray(a).astype(np.int64))
-    E = up(np.stack(Es))[:, None, :]
-    lifted = torch.where(E < 0, eng.dev.q + E, E)
+    up = lambda a: upload(a, "cpu")
+    E = np.stack(Es)[:, None, :]
+    e_pos, e_neg = up(np.maximum(E, 0)), up(np.maximum(-E, 0))
+    lifted = eng.dev.sub(e_pos, e_neg)
     assert lifted.shape == (len(As), len(ctx.all_primes), N)
     q = np.array(ctx.all_primes, dtype=np.int64)[:, None]
-    np.testing.assert_array_equal(lifted.numpy(),
-                                  np.stack(Es)[:, None, :] % q)
-    b = eng._compute(up(np.stack(As)), E, up(facs)[:, :, None], up(target),
-                     up(s_rows))
+    np.testing.assert_array_equal(lifted.numpy(), E % q)
+    b = eng._compute(up(np.stack(As)), e_pos, e_neg, up(facs)[:, :, None],
+                     up(target), up(s_rows))
     assert b.shape == (len(As), len(ctx.all_primes), N)
+    assert b.dtype == torch.int32
 
 
 def test_engine_keys_round_trip(monkeypatch):

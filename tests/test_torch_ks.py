@@ -2,10 +2,11 @@
 versions of the MAC and epilogue kernels, and TorchProgram's fused entry
 points) against the JAX package, on the CPU.
 
-Inputs are made from a seed with numpy at N=1024; keys come from
-eva_tpu's keygen and are carried into the port with eva_tpu_torch.convert.
-All arithmetic is exact modular arithmetic, so every comparison is
-bit-for-bit (tolerance zero). The CUDA kernels are held against these
+Inputs are made from a seed with numpy at N=1024 and go into the port as
+int32 tensors of their uint32 bits; keys come from eva_tpu's keygen and
+are carried into the port with eva_tpu_torch.convert. All arithmetic is
+exact modular arithmetic, so every comparison is bit-for-bit (tolerance
+zero). The CUDA kernels are held against these
 plain versions in tests/test_torch_cuda.py, on a card."""
 
 import types
@@ -21,6 +22,7 @@ from eva_tpu_torch.backend import ks, tables
 from eva_tpu_torch.backend.executor_torch import (TorchProgram, _ks_dev_tables,
                                                   _ks_maps, device_keys,
                                                   level_ops)
+from eva_tpu_torch.backend.modmath import to_host, upload
 from eva_tpu_torch.crypto.context import get_context as get_context_t
 from test_torch_executor import carry_keys
 
@@ -71,21 +73,23 @@ def test_plain_mac_matches_numpy_ks_mac(bits, alpha, own):
     n_groups, _, conv_mont = _ks_dev_tables(ctx_t, level, alpha)
     _, owner, _ = _ks_maps(ctx_t, level, alpha)
     assert (n_cur % alpha != 0) == (len(groups[-1]) < alpha)
-    y = np.zeros((n_groups * alpha, N), dtype=np.int64)
+    y = np.zeros((n_groups * alpha, N), dtype=np.uint64)
     for t, q in enumerate(primes):
         y[t] = (coeffs[t] * inv[t]) % np.uint64(q)
     k0, k1 = tp.dkeys.dense_layout(ks_t.relin, level)
-    x_ntt = (torch.from_numpy(ctx_j.ntt(coeffs, primes).astype(np.int64))[None]
-             if own else None)
+    assert k0.dtype == k1.dtype == torch.int32
+    x_ntt = (upload(ctx_j.ntt(coeffs, primes), "cpu")[None] if own
+             else None)
     ext = level_ops(primes + ctx_t.key_primes, N, "cpu")
     calls = dict(ks.PLAIN_CALLS)
     acc0, acc1 = ks.ks_mac(
-        torch.from_numpy(y).reshape(1, n_groups, alpha, N), k0, k1,
-        torch.from_numpy(conv_mont[..., 0].astype(np.int64)),
+        upload(y, "cpu").reshape(1, n_groups, alpha, N), k0, k1,
+        upload(conv_mont[..., 0], "cpu"),
         torch.from_numpy(np.concatenate([owner, [-1] * n_key])), ext, x_ntt)
     assert ks.PLAIN_CALLS["ks_mac"] == calls["ks_mac"] + 1
-    np.testing.assert_array_equal(acc0[0].numpy(), want0.astype(np.int64))
-    np.testing.assert_array_equal(acc1[0].numpy(), want1.astype(np.int64))
+    assert acc0.dtype == acc1.dtype == torch.int32
+    np.testing.assert_array_equal(to_host(acc0[0]), want0)
+    np.testing.assert_array_equal(to_host(acc1[0]), want1)
 
 
 @pytest.mark.parametrize("bits", [[60, 30, 60], [60, 30, 30]])
@@ -98,11 +102,11 @@ def test_plain_epilogue_matches_numpy_ks_div(bits, coeff_out):
     acc = [_coeffs(s, basis) for s in (3, 4)]
     want = [OJ.ks_div(ctx_j, a, level, coeff_out) for a in acc]
     ext = level_ops(basis, N, "cpu")
-    got = ks.ks_epilogue(*(torch.from_numpy(a.astype(np.int64))[None]
-                           for a in acc), ext, len(ctx_t.key_primes),
-                         out_ntt=not coeff_out)
+    got = ks.ks_epilogue(*(upload(a, "cpu")[None] for a in acc), ext,
+                         len(ctx_t.key_primes), out_ntt=not coeff_out)
     for g, w in zip(got, want):
-        np.testing.assert_array_equal(g[0].numpy(), w.astype(np.int64))
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(to_host(g[0]), w)
 
 
 def test_fused_coeffs_matches_jax_structured_ks_apply():
@@ -129,15 +133,14 @@ def test_fused_coeffs_matches_jax_structured_ks_apply():
                                          layout, coeff_out=False))(
         jnp.asarray(poly[None]))
 
-    poly_t = torch.from_numpy(poly.astype(np.int64))[None]
+    poly_t = upload(poly, "cpu")[None]
     coeffs_t = level_ops(primes, N, "cpu").intt(poly_t)
     calls = dict(ks.PLAIN_CALLS)
     got = tp._ks_fused_coeffs(coeffs_t, level, ks_t.relin, out_ntt=True,
                               poly_ntt=poly_t)
     assert ks.PLAIN_CALLS == {k: v + 1 for k, v in calls.items()}
     for r, g in zip(ref, got):
-        np.testing.assert_array_equal(np.asarray(r).astype(np.int64),
-                                      g.numpy())
+        np.testing.assert_array_equal(np.asarray(r), g.numpy().view(np.uint32))
     assert tables.PLAIN_CALLS["ntt_fwd"] > 0
 
 
@@ -165,10 +168,9 @@ def test_fused_coeffs_matches_jax_pallas_kernels_interpret():
     ref = jp._ks_fused_coeffs(coeffs_j, level, ks_j.relin, out_ntt=False,
                               poly_ntt=poly_j)
 
-    poly_t = torch.from_numpy(poly.astype(np.int64))[None]
+    poly_t = upload(poly, "cpu")[None]
     coeffs_t = level_ops(primes, N, "cpu").intt(poly_t)
     got = tp._ks_fused_coeffs(coeffs_t, level, ks_t.relin, out_ntt=False,
                               poly_ntt=poly_t)
     for r, g in zip(ref, got):
-        np.testing.assert_array_equal(np.asarray(r).astype(np.int64),
-                                      g.numpy())
+        np.testing.assert_array_equal(np.asarray(r), g.numpy().view(np.uint32))

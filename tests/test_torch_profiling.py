@@ -80,15 +80,20 @@ def test_estimate_times_equal_at_the_same_width(compiled, monkeypatch):
     assert total == total_j > 0
 
 
-def test_estimate_elementwise_bytes_scale_with_residue_width(compiled):
-    """At 8 bytes a residue (the port's int64 planes) the purely
-    elementwise classes cost twice what they cost at 4."""
-    got, _ = P.estimate_program(*compiled["eva_tpu_torch"], **CALIB)
+def test_estimate_elementwise_bytes_scale_with_residue_width(compiled,
+                                                           monkeypatch):
+    """At 4 bytes a residue (the port's int32 planes, as the JAX
+    package's uint32) the purely elementwise classes cost what they cost
+    in the JAX package; at 8 bytes twice that."""
     want, _ = PJ.estimate_program(*compiled["eva_tpu"], **CALIB)
-    assert P.RESIDUE_BYTES == 8
-    for cls in ("add/sub", "mul ct-ct", "mul plain", "modswitch"):
-        if cls in want:
-            assert got[cls][1] == pytest.approx(2 * want[cls][1], rel=1e-12)
+    assert P.RESIDUE_BYTES == 4
+    for width, factor in ((4, 1), (8, 2)):
+        monkeypatch.setattr(P, "RESIDUE_BYTES", width)
+        got, _ = P.estimate_program(*compiled["eva_tpu_torch"], **CALIB)
+        for cls in ("add/sub", "mul ct-ct", "mul plain", "modswitch"):
+            if cls in want:
+                assert got[cls][1] == pytest.approx(factor * want[cls][1],
+                                                    rel=1e-12)
 
 
 def test_estimate_defaults_are_a_calibration():

@@ -2,11 +2,12 @@
 against the JAX package.
 
 Inputs are made from numpy seeds and go through eva_tpu's DeviceLevelOps
-(JAX on the CPU) and the port's on device="cpu", where ntt/intt run the
-plain PyTorch version of the CUDA kernels. Every comparison is
-bit-identity. The plain NTT is also held against the Pallas NTT kernel in
-interpret mode. The CUDA kernels are held against the plain version in
-test_torch_cuda.py, on a card."""
+(JAX on the CPU, uint32) and the port's on device="cpu" (int32 tensors of
+the same bits), where every op runs the plain PyTorch version of its CUDA
+kernel. Every comparison is bit-identity of the uint32 values. The plain
+NTT is also held against the Pallas NTT kernel in interpret mode. The
+CUDA kernels are held against the plain versions in test_torch_cuda.py,
+on a card."""
 
 import numpy as np
 import pytest
@@ -17,8 +18,9 @@ import jax.numpy as jnp
 
 from eva_tpu.backend import tables as TJ
 from eva_tpu.backend.executor_jax import divide_last_planes as div_jax
-from eva_tpu_torch.backend import ntt_cuda
+from eva_tpu_torch.backend import modmath_cuda, ntt_cuda
 from eva_tpu_torch.backend import tables as TT
+from eva_tpu_torch.backend.modmath import upload
 from eva_tpu_torch.backend.executor_torch import (divide_last_planes,
                                                   level_ops)
 
@@ -41,11 +43,19 @@ def _planes(seed, n, lead=(2,), primes=PRIMES):
 
 
 def _t(a):
-    return torch.from_numpy(np.asarray(a).astype(np.int64))
+    """Residues (numpy, < 2^32) -> the int32 tensor of their uint32 bits."""
+    return upload(np.asarray(a), "cpu")
 
 
 def _j(a):
-    return np.asarray(a).astype(np.int64)
+    """A JAX uint32 array -> numpy uint32."""
+    return np.asarray(a).astype(np.uint32)
+
+
+def _u(t):
+    """A port int32 tensor -> its uint32 values."""
+    assert t.dtype == torch.int32
+    return t.numpy().view(np.uint32)
 
 
 @pytest.mark.parametrize("n", SIZES)
@@ -56,12 +66,12 @@ def test_ntt_intt_bit_identical(n):
             np.testing.assert_array_equal(mine, ref)
     x = _planes(n, n, lead=(2, 3))  # arbitrary leading batch dims
     f = dt.ntt(_t(x))
-    np.testing.assert_array_equal(f.numpy(),
+    np.testing.assert_array_equal(_u(f),
                                   _j(jax.jit(dj.ntt)(jnp.asarray(x))))
     back = dt.intt(f)
-    np.testing.assert_array_equal(back.numpy(), _j(jax.jit(dj.intt)(
-        jnp.asarray(f.numpy().astype(np.uint32)))))
-    np.testing.assert_array_equal(back.numpy(), x.astype(np.int64))
+    np.testing.assert_array_equal(_u(back), _j(jax.jit(dj.intt)(
+        jnp.asarray(_u(f)))))
+    np.testing.assert_array_equal(_u(back), x)
 
 
 @pytest.mark.parametrize("n", SIZES)
@@ -81,7 +91,7 @@ def test_elementwise_ops_bit_identical(n):
     got = each(dt, *(_t(v) for v in (a, b, c, d, big)))
     assert len(got) == len(want) == 9
     for g, w in zip(got, want):
-        np.testing.assert_array_equal(g.numpy(), _j(w))
+        np.testing.assert_array_equal(_u(g), _j(w))
 
 
 @pytest.mark.parametrize("n", [64, 4096])
@@ -91,7 +101,7 @@ def test_divide_last_planes_bit_identical(n):
     x = _planes(7 * n, n, lead=(3,))
     want = jax.jit(lambda v: div_jax(v, PRIMES, rest))(jnp.asarray(x))
     got = divide_last_planes(_t(x), PRIMES, rest_t)
-    np.testing.assert_array_equal(got.numpy(), _j(want))
+    np.testing.assert_array_equal(_u(got), _j(want))
 
 
 def test_plain_ntt_matches_pallas_kernel_interpret():
@@ -105,9 +115,8 @@ def test_plain_ntt_matches_pallas_kernel_interpret():
     dt = TT.DeviceLevelOps(list(primes), n, "cpu")
     x = _planes(11, n, lead=(), primes=primes)
     f = dt.ntt(_t(x))
-    np.testing.assert_array_equal(f.numpy(), _j(pn.ntt(x)))
-    np.testing.assert_array_equal(
-        dt.intt(f).numpy(), _j(pn.intt(f.numpy().astype(np.uint32))))
+    np.testing.assert_array_equal(_u(f), _j(pn.ntt(x)))
+    np.testing.assert_array_equal(_u(dt.intt(f)), _j(pn.intt(_u(f))))
 
 
 def test_level_ops_cache_keyed_by_ring_size_and_device():
@@ -118,8 +127,7 @@ def test_level_ops_cache_keyed_by_ring_size_and_device():
     assert a.n == 8192 and b.n == 16384
     assert level_ops([q], 8192, torch.device("cpu")) is a
     x = np.random.default_rng(3).integers(0, q, (1, 8192), dtype=np.uint64)
-    np.testing.assert_array_equal(a.intt(a.ntt(_t(x))).numpy(),
-                                  x.astype(np.int64))
+    np.testing.assert_array_equal(_u(a.intt(a.ntt(_t(x)))), x)
 
 
 def test_plain_calls_counted_and_cuda_wrapper_refuses_cpu_tensors():
@@ -137,3 +145,12 @@ def test_plain_calls_counted_and_cuda_wrapper_refuses_cpu_tensors():
         with pytest.raises(ValueError, match="not on a CUDA device"):
             fn(x, dt)
     assert ntt_cuda.LAUNCHES == launches
+    launches = dict(modmath_cuda.LAUNCHES)
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        modmath_cuda.mod_ew("add", dt, x, x)
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        modmath_cuda.tensor_product(dt, x, x, x, x)
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        modmath_cuda.divide_last(x, x[:-1, :1].contiguous(), PRIMES[-1],
+                                 TT.DeviceLevelOps(PRIMES[:-1], 64, "cpu"))
+    assert modmath_cuda.LAUNCHES == launches

@@ -154,15 +154,17 @@ def case_mesh(case):
 
 def case_collectives(case):
     """The four collectives of parallel/ks_shard on this rank's plane
-    x[rank] (uint32 residues [n_sub, N]) with moduli q: over one axis of
-    all ranks, and hierarchically over (dcn, ici) = case["hier"]."""
-    import torch
+    x[rank] (uint32 residues [n_sub, N], as int32 bits) with the level ops
+    of the primes q: over one axis of all ranks, and hierarchically over
+    (dcn, ici) = case["hier"]."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
+    from eva_tpu_torch.backend.modmath import upload
+    from eva_tpu_torch.backend.tables import level_ops
     from eva_tpu_torch.parallel import ks_shard
     world, rank = dist.get_world_size(), dist.get_rank()
-    x = torch.from_numpy(case["x"][rank].astype(np.int64))
-    q = torch.tensor(case["q"], dtype=torch.int64).reshape(-1, 1)
+    x = upload(case["x"][rank], "cpu")
+    q = level_ops(list(case["q"]), x.shape[-1], "cpu")
     flat = init_device_mesh("cpu", (world,), mesh_dim_names=("a",))
     g = flat.get_group("a")
     n_dcn, n_ici = case["hier"]
@@ -185,13 +187,14 @@ def case_sharded_ntt(case):
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
+    from eva_tpu_torch.backend.modmath import upload
     from eva_tpu_torch.backend.tables import DeviceLevelOps
     from eva_tpu_torch.parallel import get_sharded_ntt
     world, rank = dist.get_world_size(), dist.get_rank()
     mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("n",))
     primes, n = case["primes"], case["n"]
     sntt = get_sharded_ntt(tuple(primes), n, mesh.get_group("n"))
-    x = torch.from_numpy(case["x"].astype(np.int64))
+    x = upload(case["x"], "cpu")
     n1, n2 = sntt.n1, sntt.n2
     nl = n2 // world
     xl = x.reshape(len(primes), n1, n2)[..., rank * nl:(rank + 1) * nl]
@@ -207,16 +210,16 @@ def case_sharded_ntt(case):
 
 def case_seq_perm(case):
     """seq_perm_galois of Galois element g on this rank's slice of x."""
-    import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
+    from eva_tpu_torch.backend.modmath import upload
     from eva_tpu_torch.crypto.context import get_context
     from eva_tpu_torch.parallel.seq_exec import seq_perm_galois, seq_slice
     world = dist.get_world_size()
     mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("seq",))
     g = mesh.get_group("seq")
     ctx = get_context(*case["ctx"])
-    x = seq_slice(torch.from_numpy(case["x"].astype(np.int64)), g)
+    x = seq_slice(upload(case["x"], "cpu"), g)
     return seq_perm_galois(ctx, case["g"], g, None)(x).numpy()
 
 
@@ -235,16 +238,15 @@ def case_sks(case):
 
 def case_pipeline_step(case):
     """batch_pipeline_step over a batch mesh of all ranks on this rank's
-    shard of the batched planes a0, a1, b0, b1 [B, n_sub, N]."""
-    import torch
+    shard of the batched planes a0, a1, b0, b1 [B, n_sub, N] (uint64
+    residues; shard_batch uploads them as int32 bits)."""
     import torch.distributed as dist
     from eva_tpu_torch.backend.tables import DeviceLevelOps
     from eva_tpu_torch.parallel import (batch_pipeline_step,
                                         make_device_mesh, shard_batch)
     mesh = make_device_mesh(dist.get_world_size(), device_type="cpu")
     dev = DeviceLevelOps(case["primes"], case["n"], "cpu")
-    args = [shard_batch(case[k].astype(np.int64), mesh)
-            for k in ("a0", "a1", "b0", "b1")]
+    args = [shard_batch(case[k], mesh) for k in ("a0", "a1", "b0", "b1")]
     return [t.numpy() for t in batch_pipeline_step(dev, mesh)(*args)]
 
 

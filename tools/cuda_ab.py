@@ -16,6 +16,10 @@ turns in one command:
     for t in build/parent . . build/parent; do
         python3 tools/cuda_ab.py --root $t --label $t --paths; done
 
+The kernel inputs are this checkout's (chip_smoke.ntt_inputs,
+ks_kernel_phase): int32 residue planes, which the kernels of a tree from
+before the port's 32-bit storage (int64 planes) refuse.
+
 Prints the card line, then one `ab LABEL {json}` line, also written to
 OUT/ab_<label>_<n>.json with --out:
   ntt: K1/K2 graph-replay ms at chip_smoke.NTT_SHAPES (N = 16384 only),
@@ -150,7 +154,7 @@ def main() -> int:
         print("cuda_ab: no CUDA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.abspath(args.root))
-    from eva_tpu_torch.backend import ks_cuda, ntt_cuda
+    from eva_tpu_torch.backend import cuda_lib, ks_cuda, ntt_cuda
     if not ntt_cuda.__file__.startswith(os.path.abspath(args.root)):
         raise AssertionError(f"imported {ntt_cuda.__file__}, not --root")
 
@@ -159,8 +163,11 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    for lib in (ntt_cuda, ks_cuda):
-        lib.build(verbose=args.sweep)
+    if hasattr(cuda_lib, "build_all"):
+        cuda_lib.build_all(verbose=args.sweep)
+    else:
+        for lib in (ntt_cuda, ks_cuda):
+            lib.build(verbose=args.sweep)
     device = torch.device("cuda", 0)
     res = {"card": card, "root": args.root,
            "ntt": ntt_times(smoke, device, args.sweep),
