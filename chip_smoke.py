@@ -29,13 +29,21 @@ Phases (any failure exits non-zero and prints no result line):
      with one key prime, and Sobel's level 0 at N = 1024 and 32768.
      The key-switch kernels' registers, spill bytes and the clusters the
      card holds at once are printed first. Elementwise kernels
-     (modmath_kernel_phase): E1 (every op: add, sub, neg, mul_mont, mul,
-     shoup; the second operand full, a plaintext shared by the batch, a
-     per-row constant; an unreduced first operand for the multiplies),
-     E2 (the tensor product) and E3 (the divide-last) at Sobel's level 0
-     (B = 1 and 4) and Harris's, with their registers and spills. Device
-     times by CUDA events around CUDA-graph replays; eager per-call times
-     beside them; a bound for each timed shape.
+     (modmath_kernel_phase), with their registers and spills first: E1's
+     single form (every op: add, sub, neg, mul_mont, mul, shoup; the
+     second operand full, a plaintext shared by the batch, a per-row
+     constant; an unreduced first operand for the multiplies; a strided
+     first operand), its several-planes form (mul, add, sub, neg over a
+     rotation sum's c0, c1, acc0, acc1 in one launch, with a shared
+     plaintext, a strided plane and a zero) and E2 (the tensor product)
+     at Sobel's level 0 (B = 1 and 4) and Harris's; E1's MAC form (the
+     structured key switch's inner product) at MAC_SHAPES (Sobel's and
+     Harris's hoisted rotations at B = 1 and 4, alpha 1, one digit group,
+     strided digits); E3 (every prime and polynomial of a rescale in one
+     launch, with an addend) at E3_SHAPES; and E1 reading a strided
+     operand in place (one device operation, the kernel: no copy).
+     Device times by CUDA events around CUDA-graph replays; eager
+     per-call times beside them; a bound for each timed shape.
   3. Keygen: the key-switching-key arithmetic (DeviceKeygen, K1 at
      [groups, n_all, N]) against the host loop on seeded randomness at
      Sobel's and Harris's contexts, byte-identical, ms per key each way;
@@ -50,16 +58,19 @@ Phases (any failure exits non-zero and prints no result line):
      the port's numpy backend on the same keys and inputs, the
      decryption must match the plaintext reference, every output plane
      of the graph must be int32, and every kernel of the path must have
-     been launched (K1, K2, K4, K5, E1, E2, E3: launch counts > 0;
+     been launched (K1, K2, K4, K5, E1 in each of its three forms, E2,
+     E3: launch counts > 0;
      plain-version calls of every kernel, modmath's included, == 0; a
      replay adds the launches its capture counted; keygen: one K1 and
      five E1 launches per key).
      `execute` is timed as the median of 5 warm runs; one more execute
      counts the NTT launches by row count. Then, for each program, the
      captured execute against the eager one (the private switch
-     TorchProgram._capture off): bit-identical outputs, both wall
+     TorchProgram._capture off), and the device ms of one replay (CUDA
+     events around back-to-back replays): bit-identical outputs, both wall
      medians, the device busy time, idle share and device ops of one
-     replayed and one eager execute under torch.profiler (the replay's
+     replayed and one eager execute under torch.profiler (device ms by
+     kernel class, and by elementwise kernel and form; the replay's
      kernel launches by name, and the eager execute's launch counters,
      must equal the counts of the capture); the capture's seconds and
      graph pool bytes; and the host time of one replayed execute by
@@ -83,7 +94,9 @@ Phases (any failure exits non-zero and prints no result line):
      eva_tpu_torch.profiling: the measured HBM roofline, profile()'s
      table and calibration, and estimate_program for each program beside
      its captured execute and device busy time.
-  4. One JSON line of kernel numbers, K1, K2, K4, K5 and E1-E3
+  4. One JSON line of kernel numbers, K1, K2, K4, K5, E1 (its single,
+     several-planes and MAC forms as mod_ew, mod_ew_multi, mod_ew_mac),
+     E2 and E3
      (keygen's launches under `launches_keygen`, the mesh phase's under
      launches_by_path "sobel_mesh"), then the device line last.
 
@@ -534,24 +547,62 @@ EW_SHAPES = (("sobel_l0", (), 11), ("sobel_l0_b4", (4,), 11),
 TIMED_EW = "sobel_l0"
 
 
-def ew_bound_ms(operands, outputs, ops_per_element: int):
-    """Least time for one elementwise launch: each operand read once and
-    each output written once (4 bytes a word), ops_per_element per
-    element of the (first) output."""
+def ew_bound_ms(operands, outputs, ops: int):
+    """Least time for one elementwise launch: each distinct input read
+    once and each output written once (4 bytes a word), `ops` 32-bit
+    integer operations."""
     byts = RESIDUE_BYTES * sum(t.numel() for t in (*operands, *outputs))
-    return bound(byts, outputs[0].numel() * ops_per_element)
+    return bound(byts, ops)
+
+
+# E1's MAC form at the hoisted rotations' shapes: (label, prime bits,
+# level, alpha, batches). Sobel's and Harris's level 0 at B = 1 and 4 (the
+# main path's; six and four digit groups), alpha 1 (11 groups) and
+# Sobel's deepest level (one group: no foreign rows).
+MAC_SHAPES = (("sobel_l0", SOBEL_BITS, 0, 2, (1, 4)),
+              ("harris_l0", HARRIS_BITS, 0, 2, (1, 4)),
+              ("sobel_l0_alpha1", SOBEL_BITS, 0, 1, (1,)),
+              ("sobel_deepest", SOBEL_BITS, 5, 2, (1,)))
+# E3 shapes at N = 16384: (label, rows in, primes divided by, polynomials,
+# addend, leading dims). A rescale of a ciphertext at Sobel's level 0 by
+# one and by two primes (B = 1 and 4), the fused relinearize-rescale
+# (the key switch's output as the addend), the fused rescale-relinearize
+# (three polynomials), the structured key switch's P-division (13 rows by
+# the two key primes), and a context's eight-prime limit.
+E3_SHAPES = (("sobel_l0", 11, 2, 2, False, ()),
+             ("sobel_l0_b4", 11, 2, 2, False, (4,)),
+             ("sobel_l0_k1", 11, 1, 2, False, ()),
+             ("relin_rescale", 11, 2, 2, True, ()),
+             ("rescale_relin", 11, 2, 3, False, ()),
+             ("p_division", 13, 2, 2, False, ()),
+             ("k8", 13, 8, 1, True, ()))
+MAC_OPS = 2 * (OPS_PER_MONT_MUL + OPS_PER_ADD_MOD)  # per digit term
+
+
+def divide_ops(polys: int, lead: int, n_rows: int, k: int, n: int,
+               addend: bool) -> int:
+    """Operations of one E3 call: k division steps (DIVIDE_OPS each) for
+    each of the n_rows - k output words of a column, k (k - 1) / 2 for
+    its lifts, one add_mod per input word with an addend."""
+    steps = k * (n_rows - k) + k * (k - 1) // 2
+    return polys * lead * n * (steps * DIVIDE_OPS
+                               + (n_rows * OPS_PER_ADD_MOD if addend else 0))
 
 
 def modmath_kernel_phase(device):
-    """Phase 2, elementwise kernels: E1 (every op; the second operand
-    full, broadcast over the batch, and a per-row constant; an unreduced
-    first operand for the multiplies), E2 and E3 against their plain
-    versions at EW_SHAPES (torch.equal); each timed at the Sobel level-0
-    shapes by graph_ms, beside its plain version and its bound."""
+    """Phase 2, elementwise kernels: E1's single form (every op; the
+    second operand full, broadcast over the batch, and a per-row
+    constant; an unreduced first operand for the multiplies; a strided
+    first operand), its several-planes form (mul, add, sub, neg at a
+    rotation sum's shapes) and E2 at EW_SHAPES; E1's MAC form
+    (ew_mac_phase) and E3 (divide_phase); each against its plain version
+    (torch.equal), timed at the main path's shapes by graph_ms beside its
+    plain version and its bound; and E1's strided operands read in place
+    (strided_in_place)."""
     import torch
-    from eva_tpu_torch.backend import ks, modmath_cuda
+    from eva_tpu_torch.backend import modmath_cuda
     from eva_tpu_torch.backend import modmath as M
-    from eva_tpu_torch.backend.modmath import upload, widen
+    from eva_tpu_torch.backend.modmath import upload
     from eva_tpu_torch.backend.tables import level_ops
     from eva_tpu_torch.crypto.context import get_context
 
@@ -561,38 +612,12 @@ def modmath_kernel_phase(device):
     primes = list(get_context(tuple(SOBEL_BITS), (), n, 1).all_primes)
     results = {}
 
-    def err(got, want):
-        return max(int((widen(g) - widen(w)).abs().max().item())
-                   for g, w in zip(got, want))
-
-    def record(key, label, kern, plain, operands, ops_per_element, timed):
-        got, want = kern(), plain()
-        got = got if isinstance(got, (list, tuple)) else [got]
-        want = want if isinstance(want, (list, tuple)) else [want]
-        torch.cuda.synchronize()
-        ok = all(g.dtype == torch.int32 and torch.equal(g, w)
-                 for g, w in zip(got, want))
-        shapes = [list(t.shape) for t in operands]
-        print(f"kernels {' '.join(map(str, key))} {label} {shapes} "
-              f"equal={ok}", flush=True)
-        if not ok:
-            raise AssertionError(f"{key} disagrees with its plain version "
-                                 f"at {label} {shapes}")
-        if not timed:
-            return
-        bms, bby = ew_bound_ms(operands, got, ops_per_element)
-        res = {"shape": shapes, "ms": graph_ms(kern, 50),
-               "eager_ms": eager_ms(kern, 200),
-               "plain_ms": graph_ms(plain, 5, reps=3),
-               "bound_ms": bms, "bound_by": bby,
-               "max_abs_err": err(got, want)}
-        print(f"kernel {' '.join(map(str, key))} {label} " + json.dumps(res),
-              flush=True)
-        results[key + (label,)] = res
+    def record(key, label, kern, plain, operands, ops, timed):
+        record_form(results, key, label, [list(t.shape) for t in operands],
+                    kern, plain, operands, ops, timed)
 
     for label, lead, n_sub in EW_SHAPES:
         dev = level_ops(primes[:n_sub], n, device)
-        rest = level_ops(primes[:n_sub - 1], n, device)
         rng = np.random.default_rng(SEED + n_sub + len(lead))
         a, b, c, d = (residues(rng, dev.primes, lead + (n,), device)
                       for _ in range(4))
@@ -637,16 +662,217 @@ def modmath_kernel_phase(device):
                            op, dev, *args),
                        lambda plain=plain, pargs=pargs, extra=extra:
                        plain(*pargs, *extra),
-                       args, per, timed and not suffix)
+                       args, lambda got, per=per: got[0].numel() * per,
+                       timed and not suffix)
+        # A strided first operand (rows of a wider batched plane, as a
+        # ModSwitch leaves them), read in place.
+        wider = residues(rng, primes[:n_sub + 2], lead + (n,), device)
+        view = wider[..., :n_sub, :]
+        record(("mod_ew", "add"), label + "_strided",
+               lambda: modmath_cuda.mod_ew("add", dev, view, b),
+               lambda: M.add_mod(view, b, dev.q), (view, b), None, False)
         record(("tensor_product",), label,
                lambda: modmath_cuda.tensor_product(dev, a, b, c, d),
                lambda: M.tensor_product(a, b, c, d, dev.q, dev.rinv, dev.r2),
-               (a, b, c, d), TENSOR_PRODUCT_OPS, timed)
-        record(("divide_last",), label,
-               lambda: ks.divide_last_planes(a, dev.primes, rest),
-               lambda: ks.divide_last_plain(a, dev.primes, rest),
-               (a,), DIVIDE_OPS, timed)
+               (a, b, c, d),
+               lambda got: got[0].numel() * TENSOR_PRODUCT_OPS, timed)
+
+        # The several-planes form at a rotation sum's shapes: c0, c1 on
+        # the data primes, acc0, acc1 on the extended basis (two key
+        # primes more), a plaintext with extended rows shared by the
+        # batch, a strided c0 (the data rows of an accumulator) and a
+        # zero for a negation inside a subtraction.
+        ext = level_ops(primes[:n_sub + 2], n, device)
+        c0, c1 = (residues(rng, dev.primes, lead + (n,), device)
+                  for _ in range(2))
+        acc0, acc1 = (residues(rng, ext.primes, lead + (n,), device)
+                      for _ in range(2))
+        pt = residues(rng, ext.primes, (n,), device)
+        zero = torch.zeros((1, 1), dtype=torch.int32, device=device)
+        strided = acc1[..., :n_sub, :]
+        for op, planes, inputs in (
+                ("mul", [(c0, pt[:n_sub]), (c1, pt[:n_sub]), (acc0, pt),
+                         (acc1, pt)], (c0, c1, acc0, acc1, pt)),
+                ("add", [(c0, c1), (acc0, acc1), (acc1, acc0),
+                         (strided, c0)], (c0, c1, acc0, acc1)),
+                ("sub", [(c0, c1), (zero, c1), (acc0, acc1)],
+                 (c0, c1, acc0, acc1)),
+                ("neg", [(c0,), (acc0,), (acc1,)], (c0, acc0, acc1))):
+            rows = [max(t.shape[-2] for t in pl) for pl in planes]
+            plain_planes = [
+                (pl + ((ext.r2[:r],) if op == "mul" else ()), ext.q[:r],
+                 ext.rinv[:r]) for pl, r in zip(planes, rows)]
+            record(("mod_ew_multi", op), label,
+                   lambda op=op, planes=planes: ext.ew_planes(op, planes),
+                   lambda op=op, pp=plain_planes: M.ew_planes(op, pp),
+                   inputs, lambda got, op=op: sum(
+                       t.numel() for t in got) * EW_OPS[op],
+                   timed and op in ("mul", "add"))
+    results.update(ew_mac_phase(device))
+    results.update(divide_phase(device))
+    strided_in_place(device)
     return results
+
+
+def device_kernels(fn):
+    """The device operations one call of fn runs, by name (profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted(e.key for e in prof.key_averages()
+                  for _ in range(e.count)
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0)
+
+
+def strided_in_place(device):
+    """E1 reads strided operands in place: a single-form add of a row
+    slice of a batched plane and a multi-form add with one launch one
+    device operation each, the kernel, and no copy."""
+    import torch
+    from eva_tpu_torch.backend.tables import level_ops
+    from eva_tpu_torch.crypto.context import get_context
+    n = 16384
+    primes = list(get_context(tuple(SOBEL_BITS), (), n, 1).all_primes)
+    dev = level_ops(primes[:11], n, device)
+    rng = np.random.default_rng(SEED)
+    wide = residues(rng, primes, (4, n), device)
+    view, other = wide[:, :11, :], residues(rng, primes[:11], (4, n), device)
+    got = {"single": device_kernels(lambda: dev.add(view, other)),
+           "multi": device_kernels(lambda: dev.ew_planes(
+               "add", [(view, other), (other, view)]))}
+    print("kernels strided_in_place " + json.dumps(got), flush=True)
+    for form, name in (("single", "mod_ew_kernel"),
+                       ("multi", "mod_ew_multi_kernel")):
+        if len(got[form]) != 1 or name not in got[form][0]:
+            raise AssertionError(f"E1 {form} on a strided operand ran "
+                                 f"{got[form]}, not one {name}")
+    return got
+
+
+def ew_mac_phase(device):
+    """E1's MAC form against its plain version (modmath.mont_mac) at
+    MAC_SHAPES, also with strided digits (a window of a larger shard
+    stack, as a sharded rotation reads them); timed at the main path's
+    shapes (B = 1: label, B = 4: label_b4)."""
+    import torch
+    from eva_tpu_torch.backend import modmath as M
+    from eva_tpu_torch.backend.executor_torch import _ks_maps
+    from eva_tpu_torch.backend.tables import level_ops
+    from eva_tpu_torch.crypto.context import get_context
+
+    n = 16384
+    results = {}
+    for label, bits, level, alpha, batches in MAC_SHAPES:
+        ctx = get_context(tuple(bits), (), n, 1)
+        primes = ctx.primes_at_level(level)
+        keyp = list(ctx.key_primes)
+        ext = level_ops(primes + keyp, n, device)
+        groups, _, _ = _ks_maps(ctx, level, alpha)
+        n_cur, n_key = len(primes), len(keyp)
+        rng = np.random.default_rng(SEED + 7 * level + alpha)
+
+        def half():
+            return (residues(rng, primes, (n,), device),
+                    residues(rng, primes, (groups - 1, n), device)
+                    if groups > 1 else None,
+                    residues(rng, keyp, (groups, n), device))
+
+        keys0, keys1 = half(), half()
+        for batch in batches:
+            lead = () if batch == 1 else (batch,)
+            cases = [("", lead)]
+            if batch == 1:
+                cases.append(("_strided", (3,)))
+            for suffix, dl in cases:
+                own = residues(rng, primes, dl + (n,), device)
+                a = (residues(rng, primes, dl + (groups - 1, n), device)
+                     if groups > 1 else None)
+                b = residues(rng, keyp, dl + (groups, n), device)
+                if suffix:  # the middle shard of three
+                    own, b = own[1], b[1]
+                    a = None if a is None else a[1]
+                digits = [t for t in (own, a, b) if t is not None]
+                key_list = [t for t in (*keys0, *keys1) if t is not None]
+                shape = (f"B={batch} n_cur={n_cur} n_key={n_key} "
+                         f"groups={groups}{suffix}")
+                tag = label + ("" if batch == 1 else f"_b{batch}") + suffix
+                record_form(results, ("mod_ew_mac",), tag, shape,
+                            lambda: ext.mac(own, a, b, keys0, keys1),
+                            lambda: M.mont_mac(own, a, b, keys0, keys1,
+                                               ext.q, ext.rinv),
+                            digits + key_list,
+                            batch * (n_cur + n_key) * groups * n * MAC_OPS,
+                            not suffix and label in ("sobel_l0",
+                                                     "harris_l0"))
+    return results
+
+
+def divide_phase(device):
+    """E3 (every prime and polynomial of a call in one launch) against
+    its plain version (ks.divide_last_plain: one prime at a time, the
+    JAX package's loop) at E3_SHAPES, each timed."""
+    from eva_tpu_torch.backend import ks
+    from eva_tpu_torch.backend.tables import level_ops
+    from eva_tpu_torch.crypto.context import get_context
+
+    n = 16384
+    primes = list(get_context(tuple(SOBEL_BITS), (), n, 1).all_primes)
+    results = {}
+    for label, n_rows, k, polys, addend, lead in E3_SHAPES:
+        prim = primes[:n_rows]
+        rest = level_ops(prim[:-1], n, device)
+        rng = np.random.default_rng(SEED + 3 * n_rows + k + polys)
+        xs = [residues(rng, prim, lead + (n,), device) for _ in range(polys)]
+        adds = ([residues(rng, prim, lead + (n,), device)
+                 for _ in range(polys)] if addend else None)
+        shape = (f"{list(xs[0].shape)} k={k} polys={polys} "
+                 f"addend={addend}")
+        record_form(results, ("divide_last",), label, shape,
+                    lambda: ks.divide_last(xs, prim, k, rest, adds),
+                    lambda: ks.divide_last_plain(xs, prim, k, rest, adds),
+                    xs + (adds or []),
+                    divide_ops(polys, math.prod(lead), n_rows, k, n, addend),
+                    True)
+    return results
+
+
+def record_form(results, key, label, shape, kern, plain, inputs, ops,
+                timed):
+    """Hold kern() to plain() (torch.equal), print it; if timed, time
+    both (graph_ms, eager_ms) beside the bound of `inputs` read once, the
+    outputs written once and `ops` operations, into results[key +
+    (label,)]."""
+    import torch
+    from eva_tpu_torch.backend.modmath import widen
+    got, want = kern(), plain()
+    got = got if isinstance(got, (list, tuple)) else [got]
+    want = want if isinstance(want, (list, tuple)) else [want]
+    torch.cuda.synchronize()
+    ok = len(got) == len(want) and all(
+        g.dtype == torch.int32 and torch.equal(g, w)
+        for g, w in zip(got, want))
+    print(f"kernels {' '.join(map(str, key))} {label} {shape} equal={ok}",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"{key} disagrees with its plain version at "
+                             f"{label} {shape}")
+    if not timed:
+        return
+    bms, bby = ew_bound_ms(inputs, got, ops(got) if callable(ops) else ops)
+    res = {"shape": shape, "ms": graph_ms(kern, 50),
+           "eager_ms": eager_ms(kern, 200),
+           "plain_ms": graph_ms(plain, 5, reps=3),
+           "bound_ms": bms, "bound_by": bby,
+           "max_abs_err": max(int((widen(g) - widen(w)).abs().max().item())
+                              for g, w in zip(got, want))}
+    print(f"kernel {' '.join(map(str, key))} {label} " + json.dumps(res),
+          flush=True)
+    results[key + (label,)] = res
 
 
 COUNTERS = ("ntt_launches", "plain_calls", "ks_launches", "ks_plain_calls",
@@ -690,9 +916,10 @@ def _plain(counts):
 
 
 def check_counts(name, counts, fused: bool):
-    """Every kernel of the path launched (K1, K2, E1, E2, E3; K4 and K5
-    on the fused path), no plain version called; on the structured path
-    (fused False) no key-switch kernel either."""
+    """Every kernel of the path launched (K1, K2, E1 in each form:
+    single, several planes, MAC; E2, E3; K4 and K5 on the fused path), no
+    plain version called; on the structured path (fused False) no
+    key-switch kernel either."""
     ntt, ksl = counts["ntt_launches"], counts["ks_launches"]
     ok = (min(ntt.values()) > 0
           and min(counts["modmath_launches"].values()) > 0
@@ -707,7 +934,8 @@ def check_keygen_counts(name, counts, n_keys: int):
     error's lift, two products, a difference and a sum) per
     key-switching key, no other kernel and no plain version."""
     want = {"ntt_fwd": n_keys, "ntt_inv": 0}
-    want_ew = {"mod_ew": 5 * n_keys, "tensor_product": 0, "divide_last": 0}
+    want_ew = {"mod_ew": 5 * n_keys, "mod_ew_multi": 0, "mod_ew_mac": 0,
+               "tensor_product": 0, "divide_last": 0}
     if (counts["ntt_launches"] != want
             or counts["modmath_launches"] != want_ew
             or any(_plain(counts).values())
@@ -953,7 +1181,8 @@ def profiling_phase(device, compiled, paths):
 NTT_KERNELS = ("ntt_fwd_kernel", "ntt_inv_kernel")
 KS_KERNELS = ("ks_mac_cluster_kernel", "ks_epilogue_key_kernel",
               "ks_epilogue_row_kernel")
-MODMATH_KERNELS = ("mod_ew_kernel", "tensor_product_kernel",
+MODMATH_KERNELS = ("mod_ew_kernel", "mod_ew_multi_kernel",
+                   "mod_ew_mac_kernel", "tensor_product_kernel",
                    "divide_last_kernel")
 
 
@@ -989,6 +1218,7 @@ def profile_execute(name, pub, compiled, enc, top: int = 10):
             "ntt_ms": ms(NTT_KERNELS),
             "ks_ms": ms(KS_KERNELS),
             "modmath_ms": ms(MODMATH_KERNELS),
+            "modmath_ms_by_kernel": {k: ms((k,)) for k in MODMATH_KERNELS},
             "other_ms": sum(r[0] for r in rows if not any(
                 k in r[2] for k in NTT_KERNELS + KS_KERNELS
                 + MODMATH_KERNELS)) / 1e3,
@@ -1006,6 +1236,22 @@ def captured_entry(pub, compiled, enc):
         *tp._split([ex._host_phase(enc)[0]], False))]
 
 
+def replay_ms(entry, reps: int = 20) -> float:
+    """Device ms of one replay of a captured graph: CUDA events around
+    `reps` back-to-back replays (no input staging, no output copy)."""
+    import torch
+    entry.graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        entry.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def check_replay_launches(name, prof, launches):
     """The kernels one replayed execute ran on the device (profiler, by
     name) against the launches its capture counted: equal, and none
@@ -1018,6 +1264,8 @@ def check_replay_launches(name, prof, launches):
             "ks_epilogue_key_kernel": ks.get("ks_epilogue", 0),
             "ks_epilogue_row_kernel": ks.get("ks_epilogue", 0),
             "mod_ew_kernel": ew.get("mod_ew", 0),
+            "mod_ew_multi_kernel": ew.get("mod_ew_multi", 0),
+            "mod_ew_mac_kernel": ew.get("mod_ew_mac", 0),
             "tensor_product_kernel": ew.get("tensor_product", 0),
             "divide_last_kernel": ew.get("divide_last", 0)}
     got = (prof or {}).get("kernel_launches")
@@ -1052,6 +1300,7 @@ def replay_phase(name, pub, compiled, enc, ref_out, reps=5):
     check_replay_launches(name, prof, entry.launches)
     wall = statistics.median(times)
     return {"execute_ms_median": wall, "execute_ms_all": times,
+            "replay_ms": replay_ms(entry),
             "profile": prof, "idle_share": 1 - prof["device_ms"] / wall,
             "capture_s": entry.capture_s,
             "graph_pool_bytes": entry.pool_bytes,
@@ -1464,6 +1713,7 @@ def main() -> int:
         cap = res["captured"]
         return {
             "captured": {"execute_ms_median": cap["execute_ms_median"],
+                         "replay_ms": cap["replay_ms"],
                          "device_ms": cap["profile"]["device_ms"],
                          "device_ops": cap["profile"]["device_ops"],
                          "idle_share": cap["idle_share"],
@@ -1558,10 +1808,14 @@ def main() -> int:
     for name, key, replaces, info in (
             ("mod_ew", ("mod_ew", "mul"), "modmath.py:59",
              [f"mod_ew_{op}" for op in EW_OPS]),
+            ("mod_ew_multi", ("mod_ew_multi", "mul"), "modmath.py:59",
+             [f"mod_ew_multi_{op}" for op in EW_OPS]),
+            ("mod_ew_mac", ("mod_ew_mac",), "executor_jax.py:1052",
+             ["mod_ew_mac"]),
             ("tensor_product", ("tensor_product",), "tables.py:172",
              ["tensor_product"]),
             ("divide_last", ("divide_last",), "executor_jax.py:75",
-             ["divide_last"])):
+             [f"divide_last_k{k}" for k in (1, 2)])):
         k = kern[key + (TIMED_EW,)]
         counter = "modmath_launches"
         entry = {
@@ -1580,13 +1834,20 @@ def main() -> int:
             "batch4": {f: kern[key + (TIMED_EW + "_b4",)][f]
                        for f in fields},
             "resources": {i: ew_info[i] for i in info}}
+        if name in ("mod_ew", "mod_ew_multi"):
+            entry["by_op"] = {op: {f: kern[(name, op, TIMED_EW)][f]
+                                   for f in fields}
+                              for op in EW_OPS if (name, op, TIMED_EW) in kern}
         if name == "mod_ew":
-            entry["by_op"] = {op: {f: kern[("mod_ew", op, TIMED_EW)][f]
-                                   for f in fields} for op in EW_OPS}
             entry["ops_per_execute"] = {
                 p: paths[p]["captured"]["launches_per_execute"].get(
                     "modmath_ops", {}) for p in paths
                 if "captured" in paths[p]}
+        if name in ("mod_ew_mac", "divide_last"):
+            entry["by_shape"] = {
+                lab: {f: v[f] for f in fields}
+                for (kn, *_, lab), v in kern.items()
+                if isinstance(v, dict) and kn == name}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

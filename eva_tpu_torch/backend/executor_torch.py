@@ -13,7 +13,10 @@ tensors and replays the graph. On the CPU `_traced` runs eagerly.
 Every rescale, relinearization and rotation runs the negacyclic NTT
 (tables.DeviceLevelOps.ntt/intt: the CUDA kernels on a GPU), and every
 modular op the elementwise kernels of csrc/modmath.cu on a GPU (E1
-through DeviceLevelOps, E2 its tensor_product, E3 ks.divide_last_planes).
+through DeviceLevelOps: one op on one plane, on a rotation sum's or a
+ciphertext's planes at once (ew_planes), or the structured key switch's
+MAC (mac); E2 its tensor_product; E3 ks.divide_last, every prime and
+polynomial of a rescale at once).
 
 Key switching takes the JAX package's TPU branches: relinearizations,
 non-hoisted rotations and both fused relin/rescale pairs run the fused
@@ -66,7 +69,9 @@ from ..ir import ROTATION, Op, Program, Term, Type
 from ..passes import rotation_hoist_sources
 from . import ks_cuda, modmath_cuda, ntt_cuda, resolve_device
 from .modmath import to_host, to_mont, to_mont_rows as _to_mont_rows, upload
-from .ks import MAX_KEY_PRIMES, divide_last_planes, ks_epilogue, ks_mac
+# divide_last_planes: re-exported for the tests.
+from .ks import (MAX_KEY_PRIMES, divide_last, divide_last_planes,  # noqa: F401
+                 ks_epilogue, ks_mac)
 from .tables import DeviceLevelOps, level_ops
 
 
@@ -594,17 +599,13 @@ class TorchProgram:
             # inputs; _ks_div2 later applies the identical division.
             return acc0, acc1
 
-        def tail(acc):
-            x = ext.intt(acc)
-            prim = ctx.primes_at_level(level) + list(ctx.key_primes)
-            for _ in ctx.key_primes:
-                x = self._divide_last(x, prim)
-                prim = prim[:-1]
-            # _lops, not level_ops: on a limb x seq mesh the output NTT
-            # must route through the seq-sharded transform.
-            return self._lops(prim).ntt(x) if out_ntt else x
-
-        return tail(acc0), tail(acc1)
+        primes = ctx.primes_at_level(level)
+        d = self._divide([ext.intt(acc0), ext.intt(acc1)],
+                         primes + list(ctx.key_primes), len(ctx.key_primes))
+        # _lops, not level_ops: on a limb x seq mesh the output NTT must
+        # route through the seq-sharded transform.
+        return tuple(self._lops(primes).ntt(x) for x in d) if out_ntt \
+            else tuple(d)
 
     def _dp_materialize(self, n_dig_shards: int, shard: int, seq=None):
         """(tables, keys) of digit shard `shard` for every key-switch
@@ -861,12 +862,11 @@ class TorchProgram:
     def _ks_mac(self, digits: "StructDigits", level: int, layout):
         """Inner product of structured digits with a key-switch key in
         the matching layout: the pre-division extended-basis
-        accumulators. Hoisted rotations pass an INVERSE-permuted key
-        layout (DeviceKeys.layout_rot) and apply the automorphism to the
-        two accumulators (or outputs)."""
-        ctx = self.ctx
-        dev = self._ops_at(level)
-        key_ops = self._lops(list(ctx.key_primes))
+        accumulators, both key halves in one E1 MAC launch (the sums over
+        digits stay in registers: no tree_sum, no concatenation).
+        Hoisted rotations pass an INVERSE-permuted key layout
+        (DeviceKeys.layout_rot) and apply the automorphism to the two
+        accumulators (or outputs)."""
         if self._seq is not None:
             # Key planes are whole (evaluation domain = contiguous flat
             # layout); each rank MACs its own slice.
@@ -876,26 +876,8 @@ class TorchProgram:
                 tuple(None if k is None else seq_slice(k, group)
                       for k in half)
                 for half in layout)
-
-        def tree_sum(ops, t):
-            while t.shape[-3] > 1:
-                m = t.shape[-3]
-                half = m // 2
-                lo = t[..., :half, :, :]
-                hi = t[..., half:2 * half, :, :]
-                rest = t[..., 2 * half:, :, :]
-                t = torch.cat([ops.add(lo, hi), rest], dim=-3)
-            return t[..., 0, :, :]
-
-        def ip(k_own, k_a, k_b):
-            acc_data = dev.mul_mont(digits.own, k_own)
-            if digits.a is not None:
-                ta = tree_sum(dev, dev.mul_mont(digits.a, k_a))
-                acc_data = dev.add(acc_data, ta)
-            acc_key = tree_sum(key_ops, key_ops.mul_mont(digits.b, k_b))
-            return torch.cat([acc_data, acc_key], dim=-2)
-
-        return ip(*layout[0]), ip(*layout[1])
+        return self._ext_ops_at(level).mac(digits.own, digits.a, digits.b,
+                                           *layout)
 
     def _ks_apply(self, digits: "StructDigits", level: int, layout,
                   coeff_out=False):
@@ -923,16 +905,13 @@ class TorchProgram:
             out_shape = lead + (len(primes), n)
             return d0.reshape(out_shape), d1.reshape(out_shape)
 
-        def div_p(acc):
-            coeffs_ext = ext.intt(acc)
-            prim = primes + list(self.ctx.key_primes)
-            x = coeffs_ext
-            for _ in self.ctx.key_primes:
-                x = self._divide_last(x, prim)
-                prim = prim[:-1]
-            return x if coeff_out else self._lops(prim).ntt(x)
-
-        return div_p(acc0), div_p(acc1)
+        d0, d1 = self._divide([ext.intt(acc0), ext.intt(acc1)],
+                              primes + list(self.ctx.key_primes),
+                              len(self.ctx.key_primes))
+        if coeff_out:
+            return d0, d1
+        out = self._lops(primes)
+        return out.ntt(d0), out.ntt(d1)
 
     def _fused_ks_ok(self) -> bool:
         """Use the fused key switch (ks.ks_mac / ks.ks_epilogue) unless
@@ -992,8 +971,9 @@ class TorchProgram:
             return v
         _, level, c0, c1, acc0, acc1 = v
         d0, d1 = self._ks_div2(acc0, acc1, level)
-        dev = self._ops_at(level)
-        return [dev.add(c0, d0), d1 if c1 is None else dev.add(c1, d1)]
+        if c1 is None:
+            return [self._ops_at(level).add(c0, d0), d1]
+        return self._ops_at(level).ew_planes("add", [(c0, d0), (c1, d1)])
 
     def _fin_at(self, vals, idx: int):
         """Finalize vals[idx] IN PLACE: a multi-use rotsum must pay its
@@ -1062,25 +1042,21 @@ class TorchProgram:
         return self._ks_apply(self._ks_digits(poly, level, ksk.alpha), level,
                               self.dkeys.layout(ksk, level))
 
-    def _divide_last(self, coeffs, primes: List[int]):
-        """Divide-and-round coefficient planes by the last prime (see
-        divide_last_planes)."""
-        return divide_last_planes(coeffs, primes, self._lops(primes[:-1]))
+    def _divide(self, xs, primes: List[int], k: int, addends=None):
+        """Divide-and-round the coefficient planes xs (1-3 polynomials
+        over `primes`, plus `addends`) by their last k primes: one E3
+        launch on the card (see ks.divide_last). Elementwise along the
+        ring axis, so a seq rank's local slice takes the same tables."""
+        return divide_last(xs, primes, k, level_ops(
+            primes[:-1], self.ctx.n, self.device), addends)
 
     def _rescale(self, polys, level: int):
-        ctx = self.ctx
-        primes = ctx.primes_at_level(level)
-        entry = ctx.entries_at_level(level)[-1]
+        primes = self.ctx.primes_at_level(level)
+        k = len(self.ctx.entries_at_level(level)[-1].primes)
         dev = self._ops_at(level)
-        out = []
-        for c in polys:
-            x = dev.intt(c)
-            prim = list(primes)
-            for _ in entry.primes:
-                x = self._divide_last(x, prim)
-                prim = prim[:-1]
-            out.append(self._lops(prim).ntt(x))
-        return out
+        out = self._lops(primes[:len(primes) - k])
+        return [out.ntt(x) for x in
+                self._divide([dev.intt(c) for c in polys], primes, k)]
 
     # -- the program ---------------------------------------------------------
 
@@ -1115,8 +1091,9 @@ class TorchProgram:
                 if self._is_rotsum(v):
                     vals[idx] = self._rotsum_neg(v, dev)
                 else:
-                    vals[idx] = [dev.neg(c)
-                                 for c in self._fin_at(vals, args[0].index)]
+                    vals[idx] = dev.ew_planes(
+                        "neg", [(c,) for c in self._fin_at(vals,
+                                                           args[0].index)])
             elif op in (Op.RotateLeftConst, Op.RotateRightConst):
                 steps = term.get_attr(ROTATION)
                 if op == Op.RotateRightConst:
@@ -1183,46 +1160,53 @@ class TorchProgram:
     def _is_rotsum(v) -> bool:
         return isinstance(v, tuple) and len(v) == 6 and v[0] == "rotsum"
 
+    def _zero(self, ops: DeviceLevelOps) -> torch.Tensor:
+        """A [1, 1] zero: sub(zero, x) is neg(x) (0 - x mod q is q - x,
+        or 0 for x = 0), so a negation joins a subtraction's launch."""
+        return ops.const(("zero",), lambda: np.zeros((1, 1), np.uint32))
+
     def _rotsum_add(self, a, b, dev: DeviceLevelOps, sub: bool = False):
         """Merge/fold for Add/Sub when at least one operand is a deferred
         rotation sum. Returns the merged rotsum, or None when the
         combination can't stay deferred (caller finalizes). Modular adds
         are exact and order-independent, so merged results are
         bit-independent of association order; sub merging is sound the
-        same way (round(-x/P) = -round(x/P): odd centered rounding)."""
+        same way (round(-x/P) = -round(x/P): odd centered rounding). The
+        components' adds (or subs) go in one several-planes launch."""
+        op = "sub" if sub else "add"
         if self._is_rotsum(a) and self._is_rotsum(b):
             _, level, c0a, c1a, acc0a, acc1a = a
             _, level_b, c0b, c1b, acc0b, acc1b = b
             if level != level_b:  # pragma: no cover - checker prevents
                 return None
             ext = self._ext_ops_at(level)
-            f, fe = (dev.sub, ext.sub) if sub else (dev.add, ext.add)
-            if c1b is None:
-                c1 = c1a
-            elif c1a is None:
-                c1 = dev.neg(c1b) if sub else c1b
+            planes = [(c0a, c0b), (acc0a, acc0b), (acc1a, acc1b)]
+            if c1b is None or (c1a is None and not sub):
+                c1 = c1a if c1b is None else c1b  # nothing to compute
             else:
-                c1 = f(c1a, c1b)
-            return ("rotsum", level, f(c0a, c0b), c1,
-                    fe(acc0a, acc0b), fe(acc1a, acc1b))
+                planes.append((self._zero(ext) if c1a is None else c1a, c1b))
+            out = ext.ew_planes(op, planes)
+            return ("rotsum", level, out[0], out[3] if len(out) > 3 else c1,
+                    out[1], out[2])
         if self._is_rotsum(b):
             if sub:  # a - rs: negate every rs component, then add
                 b = self._rotsum_neg(b, dev)
                 sub = False
+                op = "add"
             a, b = b, a
         _, level, c0, c1, acc0, acc1 = a
-        f = dev.sub if sub else dev.add
         if isinstance(b, tuple):  # ("plain", pt): folds into c0 only
             pt = b[1]
             if pt.shape[-2] != c0.shape[-2]:  # extended-basis rows present
                 pt = pt[..., :c0.shape[-2], :]
+            f = dev.sub if sub else dev.add
             return ("rotsum", level, f(c0, pt), c1, acc0, acc1)
         if isinstance(b, list) and len(b) == 2:
-            if c1 is None:
-                c1 = dev.neg(b[1]) if sub else b[1]
-            else:
-                c1 = f(c1, b[1])
-            return ("rotsum", level, f(c0, b[0]), c1, acc0, acc1)
+            if c1 is None and not sub:
+                return ("rotsum", level, dev.add(c0, b[0]), b[1], acc0, acc1)
+            c0, c1 = dev.ew_planes(op, [
+                (c0, b[0]), (self._zero(dev) if c1 is None else c1, b[1])])
+            return ("rotsum", level, c0, c1, acc0, acc1)
         return None  # size-3 ciphertext: finalize and add normally
 
     def _rotsum_mul(self, rs, pt):
@@ -1230,24 +1214,28 @@ class TorchProgram:
         plaintext whose upload carries extended-basis rows (shape
         n_cur + n_key). The multiply distributes over the pre-division
         accumulators, so rot(x,s)*w products keep merging through Adds
-        and the whole inner sum pays ONE P-division."""
+        and the whole inner sum pays ONE P-division. One several-planes
+        launch: c0 and c1 on the data primes, acc0 and acc1 on the
+        extended basis (the data primes are its first rows)."""
         _, level, c0, c1, acc0, acc1 = rs
         n_cur = len(self.ctx.primes_at_level(level))
-        dev = self._ops_at(level)
-        ext = self._ext_ops_at(level)
         ptq = pt[..., :n_cur, :]
-        return ("rotsum", level, dev.mul(c0, ptq),
-                None if c1 is None else dev.mul(c1, ptq),
-                ext.mul(acc0, pt), ext.mul(acc1, pt))
+        cs = [c0] + ([] if c1 is None else [c1])
+        out = self._ext_ops_at(level).ew_planes(
+            "mul", [(c, ptq) for c in cs] + [(acc0, pt), (acc1, pt)])
+        return ("rotsum", level, out[0], None if c1 is None else out[1],
+                out[-2], out[-1])
 
     def _rotsum_neg(self, rs, dev: DeviceLevelOps):
         """Negate a deferred rotation sum without finalizing — EXACTLY
-        equal to negate-after-finalize (odd centered rounding)."""
+        equal to negate-after-finalize (odd centered rounding); one
+        several-planes launch."""
         _, level, c0, c1, acc0, acc1 = rs
-        ext = self._ext_ops_at(level)
-        return ("rotsum", level, dev.neg(c0),
-                None if c1 is None else dev.neg(c1),
-                ext.neg(acc0), ext.neg(acc1))
+        cs = [c0] + ([] if c1 is None else [c1])
+        out = self._ext_ops_at(level).ew_planes(
+            "neg", [(c,) for c in cs + [acc0, acc1]])
+        return ("rotsum", level, out[0], None if c1 is None else out[1],
+                out[-2], out[-1])
 
     def _binop(self, term: Term, vals, dev: DeviceLevelOps):
         a = vals[term.operands[0].index]
@@ -1274,16 +1262,16 @@ class TorchProgram:
                 a0, a1 = a
                 b0, b1 = b
                 return dev.tensor_product(a0, a1, b0, b1)
-            f = dev.add if op == Op.Add else dev.sub
-            n = max(len(a), len(b))
-            out = []
-            for i in range(n):
-                if i < len(a) and i < len(b):
-                    out.append(f(a[i], b[i]))
-                elif i < len(a):
-                    out.append(a[i])
-                else:
-                    out.append(b[i] if op == Op.Add else dev.neg(b[i]))
+            # The components in one several-planes launch; a component
+            # of b alone is copied (Add) or subtracted from zero (Sub).
+            out = list(a) + list(b[len(a):])
+            slots = [i for i in range(len(out))
+                     if i < len(b) and (i < len(a) or op == Op.Sub)]
+            planes = [(a[i] if i < len(a) else self._zero(dev), b[i])
+                      for i in slots]
+            for i, c in zip(slots, dev.ew_planes(
+                    "add" if op == Op.Add else "sub", planes)):
+                out[i] = c
             return out
         if a_plain and not b_plain:
             if op == Op.Sub:
@@ -1296,51 +1284,42 @@ class TorchProgram:
             return [dev.add(a[0], pt)] + list(a[1:])
         if op == Op.Sub:
             return [dev.sub(a[0], pt)] + list(a[1:])
-        return [dev.mul(c, pt) for c in a]
+        return dev.ew_planes("mul", [(c, pt) for c in a])
 
     def _relin(self, polys, level: int, dev: DeviceLevelOps):
         if len(polys) == 2:
             return list(polys)
         d0, d1 = self._key_switch(polys[2], level, self.keys.relin)
-        return [dev.add(polys[0], d0), dev.add(polys[1], d1)]
+        return dev.ew_planes("add", [(polys[0], d0), (polys[1], d1)])
 
     def _relin_rescale(self, polys, level: int):
         """Fused Relinearize -> Rescale (eager-relin adjacency): key-switch
-        output stays in the coefficient domain, added to the iNTT'd
-        c0/c1, then one rescale division + NTT at the new level."""
+        output stays in the coefficient domain and goes into the rescale
+        division as its addend (added to the iNTT'd c0/c1 in the same E3
+        launch), then one NTT at the new level."""
         ctx = self.ctx
         primes = ctx.primes_at_level(level)
-        entry = ctx.entries_at_level(level)[-1]
-        new_primes = primes[:len(primes) - len(entry.primes)]
+        k = len(ctx.entries_at_level(level)[-1].primes)
         dev = self._ops_at(level)
-        dev_new = self._lops(new_primes)
-        coeffs0 = dev.intt(polys[0])
-        coeffs1 = dev.intt(polys[1])
+        dev_new = self._lops(primes[:len(primes) - k])
+        coeffs = [dev.intt(polys[0]), dev.intt(polys[1])]
+        addends = None
         if len(polys) == 3:
             if self._dp is not None:
-                d0, d1 = self._ks_dp(dev.intt(polys[2]), level, "relin",
-                                     self.keys.relin.alpha, out_ntt=False)
+                addends = self._ks_dp(dev.intt(polys[2]), level, "relin",
+                                      self.keys.relin.alpha, out_ntt=False)
             elif self._fused_ks_ok():
-                d0, d1 = self._ks_fused_coeffs(
+                addends = self._ks_fused_coeffs(
                     dev.intt(polys[2]), level, self.keys.relin,
                     out_ntt=False, poly_ntt=polys[2])
             else:
                 digits = self._ks_digits(polys[2], level,
                                          self.keys.relin.alpha)
-                d0, d1 = self._ks_apply(
+                addends = self._ks_apply(
                     digits, level, self.dkeys.layout(self.keys.relin, level),
                     coeff_out=True)
-            coeffs0 = dev.add(coeffs0, d0)
-            coeffs1 = dev.add(coeffs1, d1)
-
-        def div(x):
-            prim = list(primes)
-            for _ in entry.primes:
-                x = self._divide_last(x, prim)
-                prim = prim[:-1]
-            return dev_new.ntt(x)
-
-        return [div(coeffs0), div(coeffs1)]
+        return [dev_new.ntt(x)
+                for x in self._divide(coeffs, primes, k, addends)]
 
     def _rescale_relin(self, polys, level: int):
         """Fused Rescale -> Relinearize: coefficient-domain between steps,
@@ -1348,19 +1327,11 @@ class TorchProgram:
         before the single final NTT (bit-identical to the unfused pair)."""
         ctx = self.ctx
         primes = ctx.primes_at_level(level)
-        entry = ctx.entries_at_level(level)[-1]
+        k = len(ctx.entries_at_level(level)[-1].primes)
         new_level = level + 1
-        new_primes = primes[:len(primes) - len(entry.primes)]
-        dev_new = self._lops(new_primes)
+        dev_new = self._lops(primes[:len(primes) - k])
         dev = self._ops_at(level)
-        coeffs = []
-        for c in polys:
-            x = dev.intt(c)
-            prim = list(primes)
-            for _ in entry.primes:
-                x = self._divide_last(x, prim)
-                prim = prim[:-1]
-            coeffs.append(x)
+        coeffs = self._divide([dev.intt(c) for c in polys], primes, k)
         if len(polys) == 2:
             return [dev_new.ntt(c) for c in coeffs]
         if self._dp is not None:
@@ -1376,8 +1347,8 @@ class TorchProgram:
                 digits, new_level,
                 self.dkeys.layout(self.keys.relin, new_level),
                 coeff_out=True)
-        return [dev_new.ntt(dev_new.add(coeffs[0], d0)),
-                dev_new.ntt(dev_new.add(coeffs[1], d1))]
+        return [dev_new.ntt(c) for c in dev_new.ew_planes(
+            "add", [(coeffs[0], d0), (coeffs[1], d1)])]
 
     def _rotate(self, polys, steps: int, level: int, dev: DeviceLevelOps,
                 hoist=None, src_key=None):

@@ -22,9 +22,11 @@ exact modular arithmetic, so the two agree bit for bit with each other
 and with the structured key switch of executor_torch (digits, MAC
 against the structured key layout, iNTT + P-division + NTT).
 
-divide_last_planes, the rescale's divide-and-round by the last prime,
-dispatches the same way: the CUDA kernel E3 (modmath_cuda.divide_last,
-csrc/modmath.cu) or its plain version here."""
+divide_last, the rescale's divide-and-round by the last k primes of 1-3
+polynomials at once (with an optional addend), dispatches the same way:
+the CUDA kernel E3 (modmath_cuda.divide_last, csrc/modmath.cu) or its
+plain version here; divide_last_planes is its one-prime, one-polynomial
+case, the JAX package's divide_last_planes."""
 
 from __future__ import annotations
 
@@ -64,20 +66,36 @@ def _divide_last64(x, p: int, pinv_mont, q, rinv):
     return _sub(r, corr, q)
 
 
+def divide_last(xs, primes: List[int], k: int, dev: DeviceLevelOps,
+                addends=None) -> list:
+    """Divide-and-round each of the 1-3 coefficient planes xs [..., n, N]
+    (n = len(primes); plus its addend, added mod q first, where `addends`
+    gives one) by its last k primes, the last first -> [..., n - k, N]:
+    the JAX package's divide_last_planes looped k times per polynomial
+    (the fused relinearize-rescale adds the key-switch output just
+    before). `dev` is the level-ops instance for primes[:-1]. One E3
+    launch on a CUDA tensor; the plain version on a CPU tensor."""
+    xs = list(xs)
+    if xs[0].is_cuda:
+        from .modmath_cuda import divide_last as kernel
+        return kernel([x.contiguous() for x in xs],
+                      _pinv_chain(dev, primes, k), primes[::-1][:k], dev,
+                      None if addends is None else
+                      [None if a is None else a.contiguous()
+                       for a in addends])
+    for t in xs + [a for a in addends or () if a is not None]:
+        _check_cpu(t, "divide_last")
+    return divide_last_plain(xs, primes, k, dev, addends)
+
+
 def divide_last_planes(coeffs, primes: List[int], dev: DeviceLevelOps):
     """Divide-and-round coefficient planes by the last prime.
 
     r_i = (x_i - centered([x]_p)) / p  mod q_i, computed as
     mont_mul(x_i + p - lift, p^-1) minus 1 when lift was not centered
     up (x_i + p - lift < 2^32 always). `dev` is the level-ops instance
-    for primes[:-1]. One E3 launch on a CUDA tensor; the plain version
-    on a CPU tensor."""
-    if coeffs.is_cuda:
-        from .modmath_cuda import divide_last
-        p = primes[-1]
-        return divide_last(coeffs.contiguous(), _pinv_const(dev, p), p, dev)
-    _check_cpu(coeffs, "divide_last_planes")
-    return divide_last_plain(coeffs, primes, dev)
+    for primes[:-1]. divide_last of one polynomial by one prime."""
+    return divide_last([coeffs], primes, 1, dev)[0]
 
 
 def _pinv_const(dev: DeviceLevelOps, p: int) -> torch.Tensor:
@@ -85,14 +103,44 @@ def _pinv_const(dev: DeviceLevelOps, p: int) -> torch.Tensor:
     return dev.const(("pinv", p), lambda: _pinv_mont(p, dev.primes))
 
 
-def divide_last_plain(coeffs, primes: List[int], dev: DeviceLevelOps):
-    """Plain PyTorch version of the CUDA kernel E3 (divide_last_planes):
-    int32 in and out, on any device."""
+def _pinv_chain(dev: DeviceLevelOps, primes: List[int], k: int):
+    """[k, n - 1] int32 on the device of `dev` (primes[:-1]): row s holds
+    p_s^-1 R mod q_i for p_s = primes[n - 1 - s] and i < n - 1 - s, zeros
+    past (the primes E3's step s divides by and the rows it leaves)."""
+    def build():
+        n = len(primes)
+        out = np.zeros((k, n - 1), dtype=np.uint32)
+        for s in range(k):
+            m = n - 1 - s
+            out[s, :m] = _pinv_mont(primes[m], primes[:m])[:, 0]
+        return out
+    return dev.const(("pinv_chain", tuple(primes), k), build)
+
+
+def divide_last_plain(xs, primes: List[int], k: int, dev: DeviceLevelOps,
+                      addends=None) -> list:
+    """Plain PyTorch version of the CUDA kernel E3 (divide_last): each
+    polynomial (plus its addend) divided by one prime at a time, k times,
+    as the JAX package loops divide_last_planes; int32 in and out, on any
+    device."""
     M.PLAIN_CALLS["divide_last"] += 1
-    p = primes[-1]
-    return narrow(_divide_last64(widen(coeffs), p,
-                                 widen(_pinv_const(dev, p)), widen(dev.q),
-                                 widen(dev.rinv)))
+    n = len(primes)
+    q, rinv = widen(dev.q), widen(dev.rinv)
+    tab = widen(_pinv_chain(dev, primes, k))
+    q_all = widen(dev.const(("and", primes[-1]), lambda: np.array(
+        dev.primes + [primes[-1]], dtype=np.uint64).reshape(-1, 1)))
+    addends = [None] * len(xs) if addends is None else list(addends)
+    outs = []
+    for x, add in zip(xs, addends):
+        x = widen(x)
+        if add is not None:
+            x = _add(x, widen(add), q_all)
+        for s in range(k):
+            m = n - 1 - s
+            x = _divide_last64(x, primes[m], tab[s, :m, None], q[:m],
+                               rinv[:m])
+        outs.append(narrow(x))
+    return outs
 
 
 def _check_cpu(x: torch.Tensor, name: str) -> None:

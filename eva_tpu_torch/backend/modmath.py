@@ -40,7 +40,8 @@ MASK32 = 0xFFFFFFFF
 # reached an elementwise op). A run on the card that went through the
 # kernels leaves these at 0.
 PLAIN_CALLS = {"add": 0, "sub": 0, "neg": 0, "mul_mont": 0, "mul": 0,
-               "shoup": 0, "tensor_product": 0, "divide_last": 0}
+               "shoup": 0, "multi": 0, "mac": 0, "tensor_product": 0,
+               "divide_last": 0}
 
 
 # -- storage ------------------------------------------------------------------
@@ -193,6 +194,57 @@ def shoup_mul(a, w, wp, q):
     by the kernel only); any a < 2^32."""
     PLAIN_CALLS["shoup"] += 1
     return narrow(_shoup(widen(a), widen(w), widen(q)))
+
+
+def _ew64(op: str, args, q, rinv):
+    """E1's op `op` (modmath_cuda.OP_CODES) on widened operands: "mul"
+    takes R^2 mod q as its third operand, "shoup" (w, wp)."""
+    if op == "add":
+        return _add(args[0], args[1], q)
+    if op == "sub":
+        return _sub(args[0], args[1], q)
+    if op == "neg":
+        return _neg(args[0], q)
+    if op == "mul_mont":
+        return _mont(args[0], args[1], q, rinv)
+    if op == "mul":
+        return _mont(_mont(args[0], args[1], q, rinv), args[2], q, rinv)
+    if op == "shoup":
+        return _shoup(args[0], args[1], q)
+    raise ValueError(f"unknown elementwise op {op!r}")
+
+
+def ew_planes(op: str, planes):
+    """Plain version of E1's several-planes form: `op` on each plane
+    (operands, q, rinv), q and rinv the [rows, 1] constants of that
+    plane's rows. Counts as `op` for one plane (the single form), else
+    as "multi"."""
+    PLAIN_CALLS["multi" if len(planes) > 1 else op] += 1
+    return [narrow(_ew64(op, [widen(t) for t in operands], widen(q),
+                         widen(rinv))) for operands, q, rinv in planes]
+
+
+def mont_mac(own, a, b, keys0, keys1, q, rinv):
+    """Plain version of E1's MAC form (the structured key switch's inner
+    product): for each key half (k_own, k_a, k_b), the data rows
+    mont(own, k_own) + sum_j mont(a_j, k_a_j) and the key rows sum_j
+    mont(b_j, k_b_j), stacked [..., n_cur + n_key, N]; q, rinv [n_ext, 1]
+    of the extended basis. a (and k_a) is None for one digit group."""
+    PLAIN_CALLS["mac"] += 1
+    n_cur = own.shape[-2]
+    q, rinv = widen(q), widen(rinv)
+    qd, rd, qk, rk = q[:n_cur], rinv[:n_cur], q[n_cur:], rinv[n_cur:]
+    own, b = widen(own), widen(b)
+    a = None if a is None else widen(a)
+
+    def half(k_own, k_a, k_b):
+        data = _mont(own, widen(k_own), qd, rd)
+        if a is not None:
+            data = (data + _mont(a, widen(k_a), qd, rd).sum(-3)) % qd
+        key = _mont(b, widen(k_b), qk, rk).sum(-3) % qk
+        return narrow(torch.cat([data, key], dim=-2))
+
+    return half(*keys0), half(*keys1)
 
 
 def tensor_product(a0, a1, b0, b1, q, rinv, r2):

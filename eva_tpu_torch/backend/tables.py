@@ -8,9 +8,10 @@ schedule is identical to the host tables (crypto/ntt.py), so device
 results are bit-identical to the numpy backend and to the JAX package.
 
 Every op dispatches on the tensor's device: a CUDA tensor goes through
-the hand-written CUDA kernels (elementwise ops and the tensor product:
-modmath_cuda, csrc/modmath.cu; ntt/intt: ntt_cuda, csrc/ntt.cu) or
-raises; a CPU tensor through the plain PyTorch versions (modmath's, and
+the hand-written CUDA kernels (elementwise ops, several planes of one op,
+the structured key-switch MAC and the tensor product: modmath_cuda,
+csrc/modmath.cu; ntt/intt: ntt_cuda, csrc/ntt.cu) or raises; a CPU
+tensor through the plain PyTorch versions (modmath's, and
 `_fwd_merged`/`_inv_merged` for the NTT); any other device raises."""
 
 from __future__ import annotations
@@ -161,14 +162,48 @@ class DeviceLevelOps:
     def _ew(self, op: str, plain, *operands, prime_dim: int = -2):
         """Elementwise op `op` (modmath_cuda.OP_CODES) on the operands,
         the primes along the output's dim `prime_dim`: E1 on a CUDA tensor
-        (non-contiguous operands copied first), `plain` on a CPU tensor,
+        (strided operands read in place), `plain` on a CPU tensor,
         anything else raises."""
         if operands[0].is_cuda:
             from .modmath_cuda import mod_ew
-            return mod_ew(op, self, *(t.contiguous() for t in operands),
-                          prime_dim=prime_dim)
+            return mod_ew(op, self, *operands, prime_dim=prime_dim)
         _check_operands(op, operands)
         return plain(*operands)
+
+    def ew_planes(self, op: str, planes) -> list:
+        """`op` on each operand tuple of `planes`, all in one E1 launch on
+        the card (the several-planes form; one plane: the single form; 4
+        planes a launch). A plane's output is the broadcast of its
+        operands, and its rows (the second-last dim) use the first rows
+        of this table's primes: a rotation sum's c0 (the level's data
+        primes) and acc (the extended basis) go in together on the
+        extended basis's ops. "mul" takes (a, b): R^2 is added here."""
+        planes = [tuple(p) for p in planes]
+        rows = [max(t.shape[-2] for t in p) for p in planes]
+        if op == "mul":
+            planes = [p + (self.r2[:r],) for p, r in zip(planes, rows)]
+        if planes[0][0].is_cuda:
+            from .modmath_cuda import MAX_PLANES, mod_ew_multi
+            return [out for i in range(0, len(planes), MAX_PLANES)
+                    for out in mod_ew_multi(op, self,
+                                            planes[i:i + MAX_PLANES])]
+        _check_operands(op, [t for p in planes for t in p])
+        return M.ew_planes(op, [(p, self.q[:r], self.rinv[:r])
+                                for p, r in zip(planes, rows)])
+
+    def mac(self, own, a, b, keys0, keys1):
+        """The structured key switch's inner product (the MAC form of E1:
+        one launch on the card, modmath.mont_mac on the CPU) of the
+        digits own [..., n_cur, N], a [..., groups - 1, n_cur, N] (None for
+        one group), b [..., groups, n_key, N] with the key halves keys0,
+        keys1 = (k_own, k_a, k_b) in the matching layout; this table is
+        the extended basis. Returns acc0, acc1 [..., n_cur + n_key, N]."""
+        if own.is_cuda:
+            from .modmath_cuda import mod_ew_mac
+            return mod_ew_mac(self, own, a, b, keys0, keys1)
+        _check_operands("mac", [t for t in (own, a, b, *keys0, *keys1)
+                                if t is not None])
+        return M.mont_mac(own, a, b, keys0, keys1, self.q, self.rinv)
 
     def _q_at(self, prime_dim: int):
         """q shaped [n_sub, 1, ...] for primes along dim `prime_dim`."""

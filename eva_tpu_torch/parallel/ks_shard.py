@@ -35,7 +35,7 @@ import torch.distributed as dist
 
 from ..backend.executor_torch import (DeviceKeys, _ks_dev_tables,
                                       _ks_dp_tables, _to_dev)
-from ..backend.ks import divide_last_planes
+from ..backend.ks import divide_last
 from ..backend.modmath import upload
 from ..backend.tables import DeviceLevelOps, level_ops
 from ..crypto.context import CKKSContext
@@ -159,15 +159,14 @@ class ShardedKeySwitch:
         self.ext = level_ops(basis, ctx.n, device)
 
     def _tail(self, acc):
-        """Replicated post-accumulation: iNTT, divide by P, final NTT."""
+        """Replicated post-accumulation: iNTT, divide by P (one E3 launch
+        on the card), final NTT."""
         ctx = self.ctx
-        x = self.ext.intt(acc)
         prim = list(self.basis)
-        for _ in ctx.key_primes:
-            x = divide_last_planes(x, prim,
-                                   level_ops(prim[:-1], ctx.n, self.device))
-            prim = prim[:-1]
-        return level_ops(prim, ctx.n, self.device).ntt(x)
+        n_out = len(prim) - len(ctx.key_primes)
+        x, = divide_last([self.ext.intt(acc)], prim, len(ctx.key_primes),
+                         level_ops(prim[:-1], ctx.n, self.device))
+        return level_ops(prim[:n_out], ctx.n, self.device).ntt(x)
 
     def __call__(self, poly) -> Tuple[torch.Tensor, torch.Tensor]:
         """poly: [n_cur, N] NTT-domain residues (uint64 numpy, or an

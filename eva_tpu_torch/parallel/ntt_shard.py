@@ -244,8 +244,11 @@ def _sub_dit_rows(ops, x, st, size):
         half = m >> 1
         w, wp = st[half]
         xb = _blocks(x, m)
+        # The halves once as planes whose last dim has stride 1, which
+        # the ops take (x may be a transposed view).
         lo = xb[..., :half, :].contiguous()
-        hi = ops.mul_shoup(xb[..., half:, :], w, wp, prime_dim=dim)
+        hi = ops.mul_shoup(xb[..., half:, :].contiguous(), w, wp,
+                           prime_dim=dim)
         x = torch.cat([ops.add(lo, hi, prime_dim=dim),
                        ops.sub(lo, hi, prime_dim=dim)],
                       dim=-2).reshape(x.shape)

@@ -177,6 +177,12 @@ class SeqLevelOps:
     def tensor_product(self, a0, a1, b0, b1):
         return self.base.tensor_product(a0, a1, b0, b1)
 
+    def ew_planes(self, op, planes):
+        return self.base.ew_planes(op, planes)
+
+    def mac(self, own, a, b, keys0, keys1):
+        return self.base.mac(own, a, b, keys0, keys1)
+
     # -- transforms (one all-to-all each) -------------------------------
 
     def ntt(self, a):

@@ -1,6 +1,7 @@
 """The CUDA kernels (eva_tpu_torch/csrc/ntt.cu: the NTT; csrc/ks.cu: the
 fused key switch's MAC and epilogue; csrc/modmath.cu: the elementwise
-modular ops E1, the tensor product E2, the divide-last E3) against their
+modular ops E1 in their single, several-planes and MAC forms, the tensor
+product E2, the divide-last E3) against their
 plain PyTorch versions, and their wrappers' refusals, on a CUDA GPU;
 every test skips without one. Residues are int32 tensors of uint32 bits.
 
@@ -332,9 +333,167 @@ def test_cuda_divide_last_matches_plain(cuda, n, lead, n_sub):
     launches = modmath_cuda.LAUNCHES["divide_last"]
     got = ks.divide_last_planes(x, full.primes, rest)
     assert modmath_cuda.LAUNCHES["divide_last"] == launches + 1
-    want = ks.divide_last_plain(x, full.primes, rest)
+    want, = ks.divide_last_plain([x], full.primes, 1, rest)
     assert got.shape == lead + (n_sub - 1, n)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("addend", [False, True])
+@pytest.mark.parametrize("polys", [1, 2, 3])
+@pytest.mark.parametrize("k", [1, 2, 3, 8])
+@pytest.mark.parametrize("n,lead", [(16384, ()), (16384, (4,)),
+                                    (1024, (2, 3))])
+def test_cuda_divide_last_every_prime_and_polynomial(cuda, n, lead, k,
+                                                     polys, addend):
+    """E3 over k primes (1 and 2: a rescale's entry; 2 and 3: the
+    P-division's key primes; 8: the limit) and 1-3 polynomials in one
+    launch, with and without the addend, against the plain version's
+    loop of one prime at a time."""
+    full = _ew_ops(n, 13, cuda)
+    rest = _ew_ops(n, 12, cuda)
+    xs = [_planes(n + j, full.primes, lead + (n,)).to(cuda)
+          for j in range(polys)]
+    adds = ([_planes(n + 9 + j, full.primes, lead + (n,)).to(cuda)
+             for j in range(polys)] if addend else None)
+    launches = modmath_cuda.LAUNCHES["divide_last"]
+    got = ks.divide_last(xs, full.primes, k, rest, adds)
+    assert modmath_cuda.LAUNCHES["divide_last"] == launches + 1
+    want = ks.divide_last_plain(xs, full.primes, k, rest, adds)
+    assert [g.shape for g in got] == [lead + (13 - k, n)] * polys
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def _rotsum_planes(n, lead, n_sub, cuda):
+    """A rotation sum's components: c0, c1 on n_sub data primes, acc0,
+    acc1 on the extended basis (two primes more), a plaintext with
+    extended rows shared by the batch, and the extended basis's ops."""
+    ext = _ew_ops(n, n_sub + 2, cuda)
+    c0, c1 = (_planes(n + j, ext.primes[:n_sub], lead + (n,)).to(cuda)
+              for j in range(2))
+    acc0, acc1 = (_planes(n + j, ext.primes, lead + (n,)).to(cuda)
+                  for j in range(2, 4))
+    pt = _planes(n + 4, ext.primes, (n,)).to(cuda)
+    return ext, c0, c1, acc0, acc1, pt
+
+
+@pytest.mark.parametrize("n,lead,n_sub", _EW_SHAPES)
+@pytest.mark.parametrize("op", ["add", "sub", "neg", "mul_mont", "mul"])
+def test_cuda_mod_ew_multi_matches_plain(cuda, op, n, lead, n_sub):
+    """E1's several-planes form: one launch over 2-4 planes of different
+    row counts (data primes, extended basis), with a plaintext broadcast
+    over the batch (its data rows a view), a strided plane (the data rows
+    of an accumulator) and a zero operand, against the plain version."""
+    ext, c0, c1, acc0, acc1, pt = _rotsum_planes(n, lead, n_sub, cuda)
+    zero = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
+    if op == "neg":
+        planes = [(c0,), (acc0,), (acc1[..., :n_sub, :],)]
+    elif op in ("mul", "mul_mont"):
+        planes = [(c0, pt[:n_sub]), (c1, pt[:n_sub]), (acc0, pt),
+                  (acc1, pt)]
+    else:
+        planes = [(c0, c1), (zero, c1), (acc0, acc1),
+                  (acc1[..., :n_sub, :], c0)]
+    for count in range(1, len(planes) + 1):
+        launches = dict(modmath_cuda.LAUNCHES)
+        got = ext.ew_planes(op, planes[:count])
+        form = "mod_ew" if count == 1 else "mod_ew_multi"
+        assert modmath_cuda.LAUNCHES[form] == launches[form] + 1
+        rows = [max(t.shape[-2] for t in p) for p in planes[:count]]
+        want = M.ew_planes(op, [
+            (p + ((ext.r2[:r],) if op == "mul" else ()), ext.q[:r],
+             ext.rinv[:r]) for p, r in zip(planes[:count], rows)])
+        assert all(g.dtype == torch.int32 and torch.equal(g, w)
+                   for g, w in zip(got, want)), (op, count)
+
+
+def _mac_inputs(n, bits, level, alpha, lead, cuda, shards=None):
+    """Structured digits (own, a, b: a the middle shard of `shards` when
+    given) and both key halves at a context's level, and its extended
+    basis's ops."""
+    from eva_tpu_torch.crypto.context import get_context
+    ctx = get_context(tuple(bits), (), n, 1)
+    primes, keyp = ctx.primes_at_level(level), list(ctx.key_primes)
+    groups, _, _ = _ks_maps(ctx, level, alpha)
+    ext = DeviceLevelOps(primes + keyp, n, cuda)
+    dl = lead + ((shards,) if shards else ())
+    seed = iter(range(n + 100 * level + alpha, 10 ** 9))
+
+    def pl(qs, shape):
+        return _planes(next(seed), qs, shape).to(cuda)
+
+    own, b = pl(primes, dl + (n,)), pl(keyp, dl + (groups, n))
+    a = pl(primes, dl + (groups - 1, n)) if groups > 1 else None
+    if shards:
+        own, b = own[..., 1, :, :], b[..., 1, :, :, :]
+        a = None if a is None else a[..., 1, :, :, :]
+    keys = [(pl(primes, (n,)),
+             pl(primes, (groups - 1, n)) if groups > 1 else None,
+             pl(keyp, (groups, n))) for _ in range(2)]
+    return ext, own, a, b, keys
+
+
+_SOBEL_BITS = [60, 20, 60, 60, 60, 60, 60]
+_HARRIS_BITS = [60, 60, 60, 60, 60]
+
+
+@pytest.mark.parametrize("shards", [None, 3])
+@pytest.mark.parametrize("lead", [(), (4,)])
+@pytest.mark.parametrize("bits,level,alpha", [
+    (_SOBEL_BITS, 0, 2), (_HARRIS_BITS, 0, 2), (_SOBEL_BITS, 0, 1),
+    (_SOBEL_BITS, 5, 2)])
+@pytest.mark.parametrize("n", [1024, 16384])
+def test_cuda_mod_ew_mac_matches_plain(cuda, n, bits, level, alpha, lead,
+                                       shards):
+    """E1's MAC form at the hoisted rotations' shapes (Sobel's and
+    Harris's level 0, alpha 1: 11 groups, Sobel's deepest level: one
+    group and no foreign rows), at batch 1 and 4, with digits that are a
+    strided shard window, against modmath.mont_mac."""
+    ext, own, a, b, (keys0, keys1) = _mac_inputs(n, bits, level, alpha,
+                                                 lead, cuda, shards)
+    launches = modmath_cuda.LAUNCHES["mod_ew_mac"]
+    got = ext.mac(own, a, b, keys0, keys1)
+    assert modmath_cuda.LAUNCHES["mod_ew_mac"] == launches + 1
+    want = M.mont_mac(own, a, b, keys0, keys1, ext.q, ext.rinv)
+    assert all(g.shape == own.shape[:-2] + (len(ext.primes), n)
+               and torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_cuda_mod_ew_reads_strided_operands_in_place(cuda):
+    """A row slice of a batched plane goes into E1 as it is: one device
+    operation (the kernel, no copy), the same residues as its copy, with
+    4 words a thread and with one (a misaligned column offset)."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = _ew_ops(16384, 11, cuda)
+    wide = _planes(1, _ew_ops(16384, 13, cuda).primes,
+                   (4, 16384)).to(cuda)
+    view, other = wide[:, :11, :], _planes(2, dev.primes, (4, 16384)).to(cuda)
+    dev.add(view, other)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = dev.add(view, other)
+        torch.cuda.synchronize()
+    ran = [e.key for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(ran) == 1 and "mod_ew_kernel" in ran[0], ran
+    assert torch.equal(got, M.add_mod(view.contiguous(), other, dev.q))
+    cols = torch.cat([wide, wide], -1)[:, :11, 3:3 + 16384]
+    assert torch.equal(dev.add(cols, other),
+                       M.add_mod(cols.contiguous(), other, dev.q))
+
+
+def test_cuda_modmath_kernels_fit_the_card(cuda):
+    """Every form's kernel at 4 words a thread spills nothing, and an SM
+    holds at least two of its blocks of 256 threads in registers (E3
+    carries 4 lifts a prime: 128 registers at its limit of 8 primes); the
+    forms the main path launches (E1, E2, E3 at one or two primes) at
+    least four."""
+    info = modmath_cuda.kernel_info(cuda)
+    assert set(info) == set(modmath_cuda.INFO_NAMES)
+    for name, res in info.items():
+        assert res["local_bytes"] == 0, (name, res)
+        assert res["registers"] * 256 * 2 <= 65536, (name, res)
+        if not name.startswith("divide_last_k") or name[-1] in "12":
+            assert res["registers"] * 256 * 4 <= 65536, (name, res)
 
 
 def test_cuda_modmath_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -342,8 +501,8 @@ def test_cuda_modmath_wrappers_reject_what_the_kernels_do_not_take(cuda):
     x = _planes(1, dev.primes, (2, 1024)).to(cuda)
     with pytest.raises(ValueError, match="int32"):
         modmath_cuda.mod_ew("add", dev, x.to(torch.int64), x)
-    with pytest.raises(ValueError, match="contiguous"):
-        modmath_cuda.mod_ew("add", dev, x, x.transpose(0, 1))
+    with pytest.raises(ValueError, match="stride 1"):
+        modmath_cuda.mod_ew("add", dev, x, torch.cat([x, x], -1)[..., ::2])
     with pytest.raises(ValueError, match="not on a CUDA device"):
         modmath_cuda.mod_ew("mul_mont", dev, x, x.cpu())
     with pytest.raises(ValueError, match="broadcast"):
@@ -359,8 +518,27 @@ def test_cuda_modmath_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="does not end in"):
         ks.divide_last_planes(x[:, :2].contiguous(), dev.primes, rest)
     with pytest.raises(ValueError, match="int32"):
-        modmath_cuda.divide_last(x.to(torch.int64), dev.q[:2].contiguous(),
-                                 dev.primes[-1], rest)
+        modmath_cuda.divide_last([x.to(torch.int64)],
+                                 dev.q[:2].contiguous(), dev.primes[-1:],
+                                 rest)
+    with pytest.raises(ValueError, match="polynomials"):
+        ks.divide_last([x] * 4, dev.primes, 1, rest)
+    with pytest.raises(ValueError, match="primes to divide"):
+        ks.divide_last([x], dev.primes, 3, rest)
+    with pytest.raises(ValueError, match="differ"):
+        ks.divide_last([x, x[:1]], dev.primes, 1, rest)
+    with pytest.raises(ValueError, match="planes"):
+        modmath_cuda.mod_ew_multi("add", dev, [(x, x)] * 5)
+    with pytest.raises(ValueError, match="rows"):
+        _ew_ops(1024, 2, cuda).ew_planes("add", [(x, x), (x, x)])
+    ext, own, a, b, (k0, k1) = _mac_inputs(1024, _SOBEL_BITS, 0, 2, (),
+                                           cuda)
+    with pytest.raises(ValueError, match="digit groups"):
+        ext.mac(own, a[:-1], b, k0, k1)
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        ext.mac(own, a, b, k0, (k1[0].cpu(),) + k1[1:])
+    with pytest.raises(ValueError, match="stride 1"):
+        ext.mac(own[..., ::2], a, b, k0, k1)
     # DeviceLevelOps on the card: a launch or a refusal, no plain call.
     plain = dict(M.PLAIN_CALLS)
     with pytest.raises(ValueError, match="int32"):

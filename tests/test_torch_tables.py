@@ -151,6 +151,6 @@ def test_plain_calls_counted_and_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="not on a CUDA device"):
         modmath_cuda.tensor_product(dt, x, x, x, x)
     with pytest.raises(ValueError, match="not on a CUDA device"):
-        modmath_cuda.divide_last(x, x[:-1, :1].contiguous(), PRIMES[-1],
+        modmath_cuda.divide_last([x], x[:-1, :1].contiguous(), [PRIMES[-1]],
                                  TT.DeviceLevelOps(PRIMES[:-1], 64, "cpu"))
     assert modmath_cuda.LAUNCHES == launches

@@ -30,9 +30,12 @@ OUT/ab_<label>_<n>.json with --out:
   ks:  K4/K5 graph-replay ms at Sobel's level 0, B = 1 and 4 (with x_ntt /
        out_ntt): chip_smoke.ks_kernel_phase, which first holds both to
        their plain versions at every KS_SHAPES shape;
-  paths (--paths): Sobel and Harris 90x90 wall ms of N warm executes,
+  paths (--paths): Sobel and Harris 90x90 and Sobel 128x128 (two
+       shards) wall ms of N warm executes,
        profiled device busy ms, NTT ms and key-switch ms of one execute,
-       and the device op count, as the tree executes by default
+       the device op count, and for a tree that captures the device ms
+       of one graph replay (chip_smoke.replay_ms, N times), as the tree
+       executes by default
        ("captured": true where it replays a captured CUDA graph); for a
        tree that captures, the same again with its private switch
        TorchProgram._capture off under "eager", so that a capturing and
@@ -101,12 +104,18 @@ def ntt_times(smoke, device, sweep: bool):
     return out
 
 
-def execute_times(smoke, name, pub, compiled, enc, reps: int):
+def execute_times(smoke, name, pub, compiled, enc, reps: int,
+                  captured: bool):
     pub.execute(compiled, enc)
     times = smoke.execute_ms(pub, compiled, enc, reps)
     prof = smoke.profile_execute(name, pub, compiled, enc, top=0)
-    return {"execute_ms_median": statistics.median(times),
-            "execute_ms_all": times, **(prof or {})}
+    res = {"execute_ms_median": statistics.median(times),
+           "execute_ms_all": times, **(prof or {})}
+    if captured:
+        entry = smoke.captured_entry(pub, compiled, enc)
+        res["replay_ms_all"] = [smoke.replay_ms(entry) for _ in range(reps)]
+        res["replay_ms"] = statistics.median(res["replay_ms_all"])
+    return res
 
 
 def path_times(smoke, reps: int):
@@ -118,7 +127,9 @@ def path_times(smoke, reps: int):
 
     out = {}
     for name, build, seed in (("sobel", smoke.build_sobel, 11),
-                              ("harris", smoke.build_harris, 13)):
+                              ("harris", smoke.build_harris, 13),
+                              ("sobel128", lambda: smoke.build_sobel(
+                                  128, 128), 19)):
         rng = smoke.np.random.default_rng(seed)
         prog = build()
         compiled, params, sig = CKKSCompiler(
@@ -127,12 +138,13 @@ def path_times(smoke, reps: int):
         enc = pub.encrypt(
             {"image": rng.uniform(0, 1, prog.vec_size).tolist()}, sig)
         out[name] = {"captured": captures,
-                     **execute_times(smoke, name, pub, compiled, enc, reps)}
+                     **execute_times(smoke, name, pub, compiled, enc, reps,
+                                     captures)}
         if captures:
             TorchProgram._capture = False
             try:
                 out[name]["eager"] = execute_times(smoke, name, pub,
-                                                   compiled, enc, reps)
+                                                   compiled, enc, reps, False)
             finally:
                 TorchProgram._capture = True
         print(f"path {name} " + json.dumps(out[name]), flush=True)
