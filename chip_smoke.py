@@ -93,7 +93,18 @@ Phases (any failure exits non-zero and prints no result line):
      processes, waited for). Then
      eva_tpu_torch.profiling: the measured HBM roofline, profile()'s
      table and calibration, and estimate_program for each program beside
-     its captured execute and device busy time.
+     its captured execute and device busy time. Then the fuzz phase
+     (fuzz_phase): FUZZ_PROGRAMS random programs of tools/fuzz_cuda.py
+     (N = 8192, 16384, 32768 in turn; every rescaler, security level,
+     key-switch route and alpha) and every program of the reference's
+     matrices (tests/test_he.py, tests/test_large.py: N = 4096 to 16384)
+     through generate_keys, encrypt, execute (a captured graph, then a
+     replay) and decrypt on the card, each bit-identical to the numpy
+     backend (residues, level) and to the plain versions on the CPU
+     (residues, level, scale), its decryption within MSE 0.01; one
+     `fuzz {...}` line (counts by N, route, alpha and rescaler, failures,
+     seconds, peak reserved memory); its counts appear as
+     launches_by_path["fuzz"].
   4. One JSON line of kernel numbers, K1, K2, K4, K5, E1 (its single,
      several-planes and MAC forms as mod_ew, mod_ew_multi, mod_ew_mac),
      E2 and E3
@@ -1655,6 +1666,71 @@ def mesh_phase(device, pub, compiled, sig, seed, reps=3):
         "multi_card": multi}
 
 
+# The fuzz phase: random programs of tools/fuzz_cuda.py (N cycling through
+# 8192 / 16384 / 32768, so 12 programs at each), then every program of the
+# reference's matrices (tests/test_he.py, tests/test_large.py) once.
+FUZZ_PROGRAMS = 36
+FUZZ_SEED = 0xC0DA
+
+
+def fuzz_phase():
+    """Whole programs at shapes no kernel check chose, each on the card
+    against the port's numpy backend (residues, level) and the plain
+    versions on the CPU (residues, level, scale), its decryption within
+    MSE 0.01 (tools/fuzz_cuda.check_program): FUZZ_PROGRAMS random
+    programs from FUZZ_SEED, then the matrix programs. Fails on any
+    mismatch, on a kernel never launched, and unless the random programs
+    cover each N at least 4 times, both key-switch routes, alpha 1 and
+    the default, and all four rescalers. Returns the counts of the phase
+    (keygen included)."""
+    import torch
+    for sub in ("tools", "tests"):
+        sys.path.insert(0, os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), sub))
+    import fuzz_cuda
+    from torch_random_programs import RESCALERS
+
+    def log(line):
+        print(line, flush=True)
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    records, failures = fuzz_cuda.check_all(
+        fuzz_cuda.random_cases(FUZZ_PROGRAMS, FUZZ_SEED), log)
+    t_random = time.perf_counter() - t0
+    matrix, more = fuzz_cuda.check_all(fuzz_cuda.matrix_cases(), log)
+    failures += more
+    counts = read_counts()
+    summary = fuzz_cuda.summary(records)
+    out = {"random": {**summary, "seed": FUZZ_SEED, "s": t_random},
+           "matrix": {**fuzz_cuda.summary(matrix),
+                      "s": time.perf_counter() - t0 - t_random},
+           "failures": len(failures), "s": time.perf_counter() - t0,
+           "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+           "allocated_after_bytes": torch.cuda.memory_allocated(),
+           "launches": {k: v for c in ("ntt_launches", "ks_launches",
+                                       "modmath_launches")
+                        for k, v in counts[c].items()}}
+    log("fuzz " + json.dumps(out))
+    if failures:
+        raise AssertionError(f"fuzz: {len(failures)} failures: {failures}")
+    unlaunched = [k for k, v in out["launches"].items() if not v]
+    if unlaunched:
+        raise AssertionError(f"fuzz: kernels never launched: {unlaunched}")
+    short = {
+        "N": [n for n in fuzz_cuda.RING_SIZES
+              if summary["by_N"].get(n, 0) < 4],
+        "route": [r for r in ("fused", "structured")
+                  if r not in summary["by_route"]],
+        "alpha": [a for a in (1, "default") if a not in summary["by_alpha"]],
+        "rescaler": [r for r in RESCALERS
+                     if r not in summary["by_rescaler"]]}
+    if any(short.values()):
+        raise AssertionError(f"fuzz: the random programs miss {short}")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1750,6 +1826,7 @@ def main() -> int:
     print("mesh " + json.dumps(mesh), flush=True)
     paths["sobel_mesh"] = mesh["batch4"]
     profiling_phase(device, compiled_by_name, paths)
+    paths["fuzz"] = fuzz_phase()
 
     # -- 4. the kernel line, then the device line ----------------------------
     ntt_info = ntt_cuda.kernel_info(14, device)

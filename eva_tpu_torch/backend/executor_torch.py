@@ -53,6 +53,7 @@ from __future__ import annotations
 import gc
 import os
 import time
+import weakref
 from collections import Counter, OrderedDict
 from functools import lru_cache
 from typing import Dict, List, Tuple
@@ -230,9 +231,10 @@ class DeviceKeys:
     in the per-level structured layout matching StructDigits. Only the
     (key, level) pairs a program actually uses are uploaded."""
 
-    def __init__(self, ctx: CKKSContext, keys: K.KeySet, device):
+    def __init__(self, ctx: CKKSContext, device):
+        # Holds no key set: device_keys's cache entry must not keep one
+        # alive.
         self.ctx = ctx
-        self.keys = keys
         self.device = resolve_device(device)
         self._cache: Dict[Tuple, tuple] = {}
 
@@ -384,16 +386,21 @@ class DeviceKeys:
         return (build(ksk.k0), build(ksk.k1))
 
 
-_DEVICE_KEYS_CACHE: Dict[Tuple, Tuple[K.KeySet, DeviceKeys]] = {}
+_DEVICE_KEYS_CACHE: Dict[Tuple, DeviceKeys] = {}
 
 
 def device_keys(ctx: CKKSContext, keys: K.KeySet, device) -> DeviceKeys:
+    """The device form of `keys`, built once per key set and device. The
+    entry lives as long as the key set: dropped with it (so a server that
+    serves many key sets frees their device layouts), and so never found
+    by a later key set that reuses its id."""
     device = resolve_device(device)
     key = (id(keys), device)
     hit = _DEVICE_KEYS_CACHE.get(key)
-    if hit is None or hit[0] is not keys:
-        hit = _DEVICE_KEYS_CACHE[key] = (keys, DeviceKeys(ctx, keys, device))
-    return hit[1]
+    if hit is None:
+        hit = _DEVICE_KEYS_CACHE[key] = DeviceKeys(ctx, device)
+        weakref.finalize(keys, _DEVICE_KEYS_CACHE.pop, key, None)
+    return hit
 
 
 class TorchProgram:

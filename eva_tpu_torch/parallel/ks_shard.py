@@ -152,7 +152,7 @@ class ShardedKeySwitch:
         self.inv_mont = _to_dev(inv_mont, device)
         self.member = _to_dev(member[mine], device)
         self.conv_m = _to_dev(conv_m[mine], device)
-        self.k0, self.k1 = DeviceKeys(ctx, None, device).dp_layout(
+        self.k0, self.k1 = DeviceKeys(ctx, device).dp_layout(
             ksk, level, n_dev, shard)
 
         self.dev = level_ops(primes, ctx.n, device)

@@ -3,7 +3,9 @@ fused key switch's MAC and epilogue; csrc/modmath.cu: the elementwise
 modular ops E1 in their single, several-planes and MAC forms, the tensor
 product E2, the divide-last E3) against their
 plain PyTorch versions, and their wrappers' refusals, on a CUDA GPU;
-every test skips without one. Residues are int32 tensors of uint32 bits.
+whole programs of tools/fuzz_cuda.py (random and from the reference's
+matrices) against the numpy backend and the plain versions; every test
+skips without one. Residues are int32 tensors of uint32 bits.
 
 This file imports neither JAX nor eva_tpu, so it runs on a machine that
 has only PyTorch with CUDA (conftest.py imports JAX, hence --noconftest):
@@ -696,6 +698,43 @@ def test_cuda_generate_keys_runs_the_engine_without_fallback(cuda,
     monkeypatch.setattr(DeviceKeygen, "_compute", broken)
     with pytest.raises(RuntimeError, match="engine failed"):
         generate_keys(params)
+
+
+# -- whole programs of tools/fuzz_cuda.py --------------------------------------
+
+
+def _fuzz_tool():
+    import os
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if os.path.join(root, "tools") not in sys.path:
+        sys.path.insert(0, os.path.join(root, "tools"))
+    import fuzz_cuda
+    return fuzz_cuda
+
+
+@pytest.mark.parametrize("ring", [8192, 16384, 32768])
+def test_cuda_random_programs_match_their_references(cuda, ring):
+    """Two random programs of random_case_wide at N = ring through
+    generate_keys, encrypt, execute and decrypt on the card: bit-identical
+    to the numpy backend and to the plain versions, MSE below 0.01."""
+    fuzz_cuda = _fuzz_tool()
+    records, failures = fuzz_cuda.check_all(
+        fuzz_cuda.random_cases(2, 0x6A0 + ring, rings=(ring,)),
+        log=lambda line: None)
+    assert not failures, failures
+    assert [r["N"] for r in records] == [ring, ring]
+
+
+@pytest.mark.parametrize("name", ["rot_left_1", "hsum_enc", "minimum_rescaler",
+                                  "security_256_false", "mixed_11"])
+def test_cuda_matrix_program_matches_its_references(cuda, name):
+    """A program of the reference's HE matrix (N = 4096 to 16384) on the
+    card, held as the random programs are."""
+    fuzz_cuda = _fuzz_tool()
+    cases = [c for c in fuzz_cuda.matrix_cases() if c[0] == f"matrix {name}"]
+    records, failures = fuzz_cuda.check_all(cases, log=lambda line: None)
+    assert not failures and len(records) == 1, failures
 
 
 # -- multi-device execution at world size 1 over NCCL ------------------------

@@ -102,6 +102,15 @@ def _compile_both(name):
     config = {"warn_vec_size": "false", **cfg}
     prog_j = _build(eva_tpu, name, f, vec, scale, **kw)
     prog_t = _build(eva_tpu_torch, name, f, vec, scale, **kw)
+    got_j, got_t = compile_pair(prog_j, prog_t, config)
+    return (prog_j, *got_j), (prog_t, *got_t)
+
+
+def compile_pair(prog_j, prog_t, config):
+    """One program, built with eva_tpu (prog_j) and with the port
+    (prog_t), compiled by each package under `config`: the parameters,
+    signature and topological op sequence must agree. Returns both
+    (program, params, signature) triples."""
     cj, pj, sj = CompilerJ(dict(config)).compile(prog_j)
     ct, pt, st = CompilerT(dict(config)).compile(prog_t)
     assert (pj.prime_bits, pj.rotations, pj.poly_modulus_degree,
@@ -114,7 +123,7 @@ def _compile_both(name):
          for k, v in st.inputs.items()}
     assert [t.op.name for t in cj.topological_order()] == \
         [t.op.name for t in ct.topological_order()]
-    return (prog_j, cj, pj, sj), (prog_t, ct, pt, st)
+    return (cj, pj, sj), (ct, pt, st)
 
 
 def carry_keys(params, ks):
@@ -137,6 +146,55 @@ def _assert_same(out_ref, out_port):
         for pa, pb in zip(a.polys, b.polys):
             np.testing.assert_array_equal(np.asarray(pa).astype(np.uint64),
                                           pb)
+
+
+def check_against_eva_tpu(prog_j, prog_t, inputs, config, env=None):
+    """The oracle of the program matrices (test_torch_fuzz.py,
+    test_torch_he.py, test_torch_large.py): one program built with each
+    package (prog_j, prog_t), compiled by each under `config`
+    (compile_pair), the compile holding plaintext semantics (MSE < 1e-10
+    against evaluate). Under `env`: eva_tpu generates the keys and
+    encrypts; its numpy backend executes; the port executes on the keys
+    and ciphertexts carried over, with Executor(backend="torch",
+    device="cpu"). Each output: residues and level equal to the numpy
+    backend's, scale equal to eva_tpu's planner value (ROADMAP.md Queue
+    3: the numpy backend may differ by one ulp), plaintexts and raw values
+    equal; the port's decryption within MSE 0.01 of evaluate. Returns
+    (port outputs, port params)."""
+    from eva_tpu_torch import evaluate
+    from eva_tpu_torch.metric import valuation_mse
+    from eva_tpu_torch.runtime import EVASecret, EVAValuation
+    from torch_random_programs import environment
+
+    (cj, pj, sj), (ct, pt, st) = compile_pair(prog_j, prog_t, config)
+    reference = evaluate(prog_t, inputs)
+    assert valuation_mse(reference, evaluate(ct, inputs)) < 1e-10
+    with environment(env or {}):
+        pub, _ = keygen_j(pj, backend="numpy")
+        enc = pub.encrypt(inputs, sj)
+        ex_j = ExecutorJ(cj, pub.ctx, pub._keys, backend="numpy")
+        out_ref = ex_j.run(enc)
+        ctx_t, keys_t = carry_keys(pt, pub._keys)
+        out_t = ExecutorT(ct, ctx_t, keys_t, backend="torch",
+                          device="cpu").run(carry_values(enc))
+    assert set(out_ref) == set(out_t)
+    for name, a in out_ref.items():
+        b = out_t[name]
+        if hasattr(a, "polys") or hasattr(a, "poly"):
+            planner = ex_j.plan[cj.outputs[name].index]
+            assert (b.level, b.scale) == (a.level, planner.scale), name
+            pa = a.polys if hasattr(a, "polys") else [a.poly]
+            pb = b.polys if hasattr(b, "polys") else [b.poly]
+            assert len(pa) == len(pb), name
+            for x, y in zip(pa, pb):
+                np.testing.assert_array_equal(
+                    np.asarray(x).astype(np.uint64), y)
+        else:
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    out = EVASecret(ctx_t, keys_t, pt).decrypt(EVAValuation(pt, out_t), st)
+    mse = valuation_mse(out, reference)
+    assert mse < 0.01, f"HE round-trip MSE {mse}"
+    return out_t, pt
 
 
 def _run(name, ref_backend, monkeypatch=None, env=None):
