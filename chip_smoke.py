@@ -40,8 +40,10 @@ Phases (any failure exits non-zero and prints no result line):
      structured key switch's inner product) at MAC_SHAPES (Sobel's and
      Harris's hoisted rotations at B = 1 and 4, alpha 1, one digit group,
      strided digits); E3 (every prime and polynomial of a rescale in one
-     launch, with an addend) at E3_SHAPES; and E1 reading a strided
-     operand in place (one device operation, the kernel: no copy).
+     launch, with an addend) at E3_SHAPES; E1 reading a strided
+     operand in place (one device operation, the kernel: no copy); and
+     E4 (modmul_burn: 16 dependent Montgomery multiplies a word,
+     bench_torch.py's modular-multiply rate probe) at BURN_SHAPES.
      Device times by CUDA events around CUDA-graph replays; eager
      per-call times beside them; a bound for each timed shape.
   3. Keygen: the key-switching-key arithmetic (DeviceKeygen, K1 at
@@ -104,10 +106,20 @@ Phases (any failure exits non-zero and prints no result line):
      (residues, level, scale), its decryption within MSE 0.01; one
      `fuzz {...}` line (counts by N, route, alpha and rescaler, failures,
      seconds, peak reserved memory); its counts appear as
-     launches_by_path["fuzz"].
+     launches_by_path["fuzz"]. Then the entry-point phase
+     (entry_phase): examples/image_processing_torch.py and
+     examples/regression_torch.py as subprocesses on the card (exit 0;
+     each printed MSE of the image example below 0.01, the regression
+     example asserts its own), and bench_torch.run at full size with
+     one pass, its counts reset just before it and read just after: the
+     line holds every key of bench.py's, every throughput and time is
+     positive, every sol_pct and compute_pct at most 105, K1, K2, K4,
+     K5, E1 in its three forms, E2, E3 and E4 launched, no plain
+     version called; one `bench {...}` line; its counts appear as
+     launches_by_path["bench"].
   4. One JSON line of kernel numbers, K1, K2, K4, K5, E1 (its single,
      several-planes and MAC forms as mod_ew, mod_ew_multi, mod_ew_mac),
-     E2 and E3
+     E2, E3 and E4 (its launches those of the bench run)
      (keygen's launches under `launches_keygen`, the mesh phase's under
      launches_by_path "sobel_mesh"), then the device line last.
 
@@ -125,96 +137,23 @@ import time
 
 import numpy as np
 
+import bench_torch
+from bench_torch import (HBM_BYTES_PER_S, INT32_OPS_PER_S, MSE_LIMIT,
+                         OPS_PER_MONT_MUL, build_harris, build_sobel,
+                         captured_entry, card_line, replay_ms)
+
 SEED = 20260
-# H100 SXM peaks: HBM3 3.35 TB/s (NVIDIA data sheet); 32-bit integer
-# ALU throughput 132 SMs x 64 INT32 lanes x 1.98 GHz boost = 16.7e12
-# ops/s (Hopper architecture white paper: 64 INT32 units per SM).
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # Integer ops per radix-2 butterfly of the modular arithmetic alone:
 # Shoup multiply (mulhi, 2 mul-lo, sub, compare+select: 6), add_mod (4),
 # sub_mod (4).
 OPS_PER_BUTTERFLY = 14
-# 32-bit Montgomery multiply: 64-bit product (2), m = lo * nqinv (1),
-# m * q (2), 64-bit add (2), compare + select (2). add_mod: 4. One
-# divide-and-round step per residue: add, Shoup multiply (6), sub_mod (4),
-# compare: 12.
-OPS_PER_MONT_MUL = 9
+# add_mod (4). One divide-and-round step per residue: add, Shoup
+# multiply (6), sub_mod (4), compare: 12. A 32-bit Montgomery multiply's
+# 6: bench_torch.OPS_PER_MONT_MUL.
 OPS_PER_ADD_MOD = 4
 OPS_PER_DIVIDE = 12
 SOBEL_BITS = [60, 20, 60, 60, 60, 60, 60]
 HARRIS_BITS = [60, 60, 60, 60, 60]
-# Decrypted MSE against the plaintext reference. Sobel's is ~1e-14.
-# Harris's outputs reach ~1e4 and its MSE varies with the keys: over 48
-# fresh key sets it ran 2.9e-4 (min), 4.1e-4 (median), 1.3e-3 (max)
-# (`python3 mse_draws.py harris 48`, host numpy backend, whose
-# ciphertexts equal the card's). The limit is about 4x that max.
-MSE_LIMIT = {"sobel": 1e-6, "harris": 5e-3, "sobel128": 5e-13}
-
-
-def build_sobel(h=90, w=90):
-    """2x 3x3 convolutions + cubic polynomial on the squared gradient
-    magnitude (the reference's image_processing.py Sobel workload)."""
-    from eva_tpu_torch import EvaProgram, Input, Output
-
-    prog = EvaProgram("sobel", vec_size=2 ** (math.ceil(math.log2(h * w))))
-    with prog:
-        image = Input("image")
-        filt = [[-1, 0, 1], [-2, 0, 2], [-1, 0, 1]]
-        a1, a2, a3 = 2.2137874823876622, -1.0984324107372518, \
-            0.17254603006834726
-        Ix = Iy = None
-        for i in range(3):
-            for j in range(3):
-                rotated = image << (i * w + j)
-                horizontal = rotated * filt[i][j]
-                vertical = rotated * filt[j][i]
-                if Ix is None:
-                    Ix, Iy = horizontal, vertical
-                else:
-                    Ix, Iy = Ix + horizontal, Iy + vertical
-        x = Ix ** 2 + Iy ** 2
-        Output("image", x * a1 + x ** 2 * a2 + x ** 3 * a3)
-    prog.set_input_scales(45)
-    prog.set_output_ranges(20)
-    return prog
-
-
-def build_harris(h=90, w=90):
-    """Sobel gradients, three 3x3 box sums over their products,
-    determinant/trace corner response (the reference's Harris
-    workload)."""
-    from eva_tpu_torch import EvaProgram, Input, Output
-
-    prog = EvaProgram("harris", vec_size=2 ** (math.ceil(math.log2(h * w))))
-    with prog:
-        image = Input("image")
-        sobel_filter = [[-1, 0, 1], [-2, 0, 2], [-1, 0, 1]]
-        box = [[1, 1, 1], [1, 1, 1], [1, 1, 1]]
-        k = 0.04
-
-        def conv(img, filt, also_transposed=False):
-            a = b = None
-            for i in range(3):
-                for j in range(3):
-                    rot = img << (i * w + j)
-                    hor = rot * filt[i][j]
-                    a = hor if a is None else a + hor
-                    if also_transposed:
-                        ver = rot * filt[j][i]
-                        b = ver if b is None else b + ver
-            return (a, b) if also_transposed else a
-
-        Ix, Iy = conv(image, sobel_filter, also_transposed=True)
-        Sxx = conv(Ix * Ix, box)
-        Syy = conv(Iy * Iy, box)
-        Sxy = conv(Ix * Iy, box)
-        det = Sxx * Syy - Sxy * Sxy
-        trace = Sxx + Syy
-        Output("image", det - k * trace * trace)
-    prog.set_input_scales(30)
-    prog.set_output_ranges(20)
-    return prog
 
 
 def eager_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -765,6 +704,47 @@ def strided_in_place(device):
     return got
 
 
+# E4 shapes at N = 16384: (label, leading dims, primes). bench_torch's
+# probe runs at "bench" ([8, 12]: kernel_sol's level-0 planes of its
+# L = 6 context); the others are a ct-mul batch of 32 and a batch of 8
+# at other prime counts.
+BURN_SHAPES = (("bench", (8,), 12), ("b32_p6", (32,), 6), ("b8_p7", (8,), 7))
+
+
+def burn_phase(device):
+    """Phase 2, E4: modmul_burn against its plain version (torch.equal) at
+    BURN_SHAPES on reduced and unreduced words, each timed (graph_ms)
+    beside its plain version and its bound (8 bytes a word;
+    modmath.BURN_K Montgomery multiplies of OPS_PER_MONT_MUL operations
+    a word)."""
+    from eva_tpu_torch.backend import modmath as M
+    from eva_tpu_torch.backend import modmath_cuda
+    from eva_tpu_torch.backend.modmath import upload
+    from eva_tpu_torch.backend.tables import level_ops
+    from eva_tpu_torch.crypto.context import get_context
+
+    n = 16384
+    primes = list(get_context(tuple([60] * 7), (), n, 1).all_primes)
+    results = {}
+    for label, lead, n_sub in BURN_SHAPES:
+        dev = level_ops(primes[:n_sub], n, device)
+        rng = np.random.default_rng(SEED + 7 * n_sub + len(lead))
+        for suffix, x in (
+                ("", residues(rng, dev.primes, lead + (n,), device)),
+                ("_unreduced", upload(rng.integers(
+                    0, 2 ** 32, lead + (n_sub, n), dtype=np.uint64),
+                    device))):
+            record_form(results, ("modmul_burn",), label + suffix,
+                        list(x.shape),
+                        lambda x=x, dev=dev: modmath_cuda.modmul_burn(
+                            dev, x),
+                        lambda x=x, dev=dev: M.modmul_burn(
+                            x, dev.q, dev.rinv),
+                        (x,), lambda got: got[0].numel() * M.BURN_K
+                        * OPS_PER_MONT_MUL, not suffix)
+    return results
+
+
 def ew_mac_phase(device):
     """E1's MAC form against its plain version (modmath.mont_mac) at
     MAC_SHAPES, also with strided digits (a window of a larger shard
@@ -888,7 +868,7 @@ def record_form(results, key, label, shape, kern, plain, inputs, ops,
 
 COUNTERS = ("ntt_launches", "plain_calls", "ks_launches", "ks_plain_calls",
             "ks_max_batch", "modmath_launches", "modmath_plain_calls",
-            "modmath_ops")
+            "modmath_ops", "probe_launches")
 
 
 def _counters():
@@ -896,7 +876,8 @@ def _counters():
                                        ntt_cuda, tables)
     return (ntt_cuda.LAUNCHES, tables.PLAIN_CALLS, ks_cuda.LAUNCHES,
             ks.PLAIN_CALLS, ks_cuda.MAX_BATCH, modmath_cuda.LAUNCHES,
-            modmath.PLAIN_CALLS, modmath_cuda.OPS)
+            modmath.PLAIN_CALLS, modmath_cuda.OPS,
+            modmath_cuda.PROBE_LAUNCHES)
 
 
 def reset_counts():
@@ -1239,30 +1220,6 @@ def profile_execute(name, pub, compiled, enc, top: int = 10):
             "wall_ms": wall, "device_ops": sum(r[1] for r in rows)}
 
 
-def captured_entry(pub, compiled, enc):
-    """The captured graph that `execute` replays for `enc`."""
-    ex = pub._executor_for(compiled)
-    tp = ex._get_torch_program()
-    return tp._captured[tp._capture_key(
-        *tp._split([ex._host_phase(enc)[0]], False))]
-
-
-def replay_ms(entry, reps: int = 20) -> float:
-    """Device ms of one replay of a captured graph: CUDA events around
-    `reps` back-to-back replays (no input staging, no output copy)."""
-    import torch
-    entry.graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        entry.graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def check_replay_launches(name, prof, launches):
     """The kernels one replayed execute ran on the device (profiler, by
     name) against the launches its capture counted: equal, and none
@@ -1290,7 +1247,7 @@ def replay_phase(name, pub, compiled, enc, ref_out, reps=5):
     backend, its launch counters against the capture's counts, its wall
     median, its profile (kernel launches by name against the capture's
     counts), and the host time of one replayed execute by step."""
-    entry = captured_entry(pub, compiled, enc)
+    entry = captured_entry(pub, compiled, [enc])
     check_int32(f"{name} captured graph", entry.out)
     reset_counts()
     out = pub.execute(compiled, enc)
@@ -1731,6 +1688,92 @@ def fuzz_phase():
     return counts
 
 
+EXAMPLES = ("examples/image_processing_torch.py",
+            "examples/regression_torch.py")
+# The reference's tolerance for an HE result against the plaintext one
+# (examples/regression.py's assert, tests/test_he.py).
+EXAMPLE_MSE_LIMIT = 0.01
+SOL_PCT_LIMIT = 105
+
+
+def entry_phase():
+    """The user's entry points on the card: the two card examples as
+    subprocesses (exit 0; every MSE the image example prints below
+    EXAMPLE_MSE_LIMIT, and Sobel's and Harris's both printed), then
+    bench_torch.run at full size with one pass, the counts reset just
+    before it and read just after. Fails unless the line holds every key
+    of bench.py's (bench_torch.LINE_EXTRAS), every sampled metric,
+    host baseline, first-execute and compile time is positive, every
+    kernel_sol step's us positive and its sol_pct and compute_pct at
+    most SOL_PCT_LIMIT, both MSEs below MSE_LIMIT, and K1, K2, K4, K5,
+    E1 in its three forms, E2, E3 and E4 launched with no plain version
+    called (check_bench_line, check_counts). Returns (the line, the
+    counts, the examples' results)."""
+    import re
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    examples = {}
+    for script in EXAMPLES:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, script], cwd=root,
+                              capture_output=True, text=True, timeout=600)
+        for line in proc.stdout.splitlines():
+            print(f"example {script}: {line}", flush=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"{script} exited {proc.returncode}:\n"
+                                 f"{proc.stderr[-4000:]}")
+        mse = {name: float(v) for name, v in re.findall(
+            r"^(\w+): N=.* MSE=(\S+)$", proc.stdout, re.M)}
+        examples[script] = {"s": time.perf_counter() - t0, "mse": mse}
+        if "image_processing" in script and (
+                set(mse) != {"sobel", "harris"}
+                or not max(mse.values()) < EXAMPLE_MSE_LIMIT):
+            raise AssertionError(f"{script}: MSE {mse}")
+    print("examples " + json.dumps(examples), flush=True)
+
+    t0 = time.perf_counter()
+    reset_counts()
+    line = bench_torch.run(passes=1)
+    counts = read_counts()
+    bench_s = time.perf_counter() - t0
+    print("bench " + json.dumps(line), flush=True)
+    check_bench_line(line)
+    check_counts("bench", counts, fused=True)
+    if not counts["probe_launches"]["modmul_burn"] > 0:
+        raise AssertionError(f"bench: E4 never launched: {counts}")
+    print(f"bench_s {bench_s:.2f}", flush=True)
+    return line, counts, examples
+
+
+def check_bench_line(line):
+    """bench_torch's line: every key of bench.py's, every sampled
+    metric, host baseline, first-execute and compile time positive, the
+    seven kernel_sol steps' us positive and their sol_pct and compute_pct
+    at most SOL_PCT_LIMIT, both MSEs below MSE_LIMIT."""
+    extras = line["extras"]
+    missing = bench_torch.LINE_EXTRAS - set(extras)
+    sol = extras["kernel_sol"]
+    steps = [k for k, v in sol.items() if isinstance(v, dict) and "us" in v]
+    times = ([extras[f"{k}_{u}"] for k, _, u in bench_torch.SAMPLED]
+             + [line["value"]]
+             + [extras[k] for k in (
+                 "ct_mul_host_per_sec", "rotation_host_us",
+                 "harris_host_ms", "sobel90_first_execute_s",
+                 "harris_first_execute_s", "sobel_compile_cold_s",
+                 "sobel_compile_warm_s")]
+             + [sol[k]["us"] for k in steps]
+             + [sol["hbm_gbs"], sol["vpu_modmul_gops"]])
+    over = {k: sol[k] for k in steps
+            if not (sol[k]["sol_pct"] <= SOL_PCT_LIMIT
+                    and sol[k]["compute_pct"] <= SOL_PCT_LIMIT)}
+    if missing or not min(times) > 0 or over or len(steps) != 7:
+        raise AssertionError(f"bench: missing {missing}, times {times}, "
+                             f"steps {steps}, over {SOL_PCT_LIMIT}%: {over}")
+    bad = bench_torch.mse_failures(line)
+    if bad:
+        raise AssertionError(f"bench: {bad}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1742,11 +1785,7 @@ def main() -> int:
     from eva_tpu_torch.backend import cuda_lib, modmath_cuda, ntt_cuda
 
     # -- 1. the card and the build -------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    card = smi.stdout.strip().splitlines()[0]
-    print(card, flush=True)
+    print(card_line(), flush=True)
     device = torch.device("cuda", 0)
     t0 = time.perf_counter()
     sources = cuda_lib.build_all(verbose=True)
@@ -1758,6 +1797,7 @@ def main() -> int:
     kern = kernel_phase(device)
     kern.update(ks_kernel_phase(device))
     kern.update(modmath_kernel_phase(device))
+    kern.update(burn_phase(device))
 
     # -- 3. keygen on the card, then the main path ---------------------------
     keygen = keygen_phase(device)
@@ -1827,6 +1867,9 @@ def main() -> int:
     paths["sobel_mesh"] = mesh["batch4"]
     profiling_phase(device, compiled_by_name, paths)
     paths["fuzz"] = fuzz_phase()
+    t0 = time.perf_counter()
+    _, paths["bench"], _ = entry_phase()
+    print(f"entry_phase_s {time.perf_counter() - t0:.2f}", flush=True)
 
     # -- 4. the kernel line, then the device line ----------------------------
     ntt_info = ntt_cuda.kernel_info(14, device)
@@ -1926,6 +1969,18 @@ def main() -> int:
                 for (kn, *_, lab), v in kern.items()
                 if isinstance(v, dict) and kn == name}
         kernels.append(entry)
+    k = kern[("modmul_burn", "bench")]
+    kernels.append({
+        "name": "modmul_burn", "route": "cuda",
+        "source": "eva_tpu_torch/csrc/modmath.cu",
+        "replaces": "bench.py:540 measure_vpu_modmul",
+        "launches": paths["bench"]["probe_launches"]["modmul_burn"],
+        "launches_by_path": {p: paths[p]["probe_launches"]["modmul_burn"]
+                             for p in paths if "probe_launches" in paths[p]},
+        **{f: k[f] for f in fields}, "library_ms": None,
+        "by_shape": {key[-1]: {f: v[f] for f in fields}
+                     for key, v in kern.items() if key[0] == "modmul_burn"},
+        "resources": ew_info["modmul_burn"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,13 +35,16 @@ import torch
 
 R_BITS = 32
 MASK32 = 0xFFFFFFFF
+# Dependent Montgomery multiplies a word in E4 (modmul_burn; the kernel's
+# kBurnK).
+BURN_K = 16
 
 # Calls of the plain versions of the elementwise kernels (a CPU tensor
 # reached an elementwise op). A run on the card that went through the
 # kernels leaves these at 0.
 PLAIN_CALLS = {"add": 0, "sub": 0, "neg": 0, "mul_mont": 0, "mul": 0,
                "shoup": 0, "multi": 0, "mac": 0, "tensor_product": 0,
-               "divide_last": 0}
+               "divide_last": 0, "modmul_burn": 0}
 
 
 # -- storage ------------------------------------------------------------------
@@ -253,3 +256,14 @@ def tensor_product(a0, a1, b0, b1, q, rinv, r2):
     PLAIN_CALLS["tensor_product"] += 1
     out = _tensor_product(*(widen(t) for t in (a0, a1, b0, b1, q, rinv, r2)))
     return [narrow(t) for t in out]
+
+
+def modmul_burn(a, q, rinv):
+    """Plain version of E4 (modmath_cuda.modmul_burn): BURN_K chained
+    Montgomery multiplies of a, by 3 and 5 in turn; any a < 2^32."""
+    PLAIN_CALLS["modmul_burn"] += 1
+    q, rinv = widen(q), widen(rinv)
+    v = widen(a)
+    for j in range(BURN_K):
+        v = _mont(v, 5 if j % 2 else 3, q, rinv)
+    return narrow(v)

@@ -22,6 +22,10 @@ tensor; tables.DeviceLevelOps and ks.divide_last dispatch by device.
   E2 tensor_product(ops, a0, a1, b0, b1) -> [d0, d1, d2];
   E3 divide_last(xs, pinv, ps, ops, addends) -> each of 1-3 polynomials
      divided by its last k primes.
+  E4 modmul_burn(ops, x): modmath.BURN_K dependent Montgomery
+     multiplies of each word of x by 3 and 5 in turn (bench_torch.py's
+     modular-multiply rate probe; on no program's path). It dispatches
+     by device itself: a CPU tensor goes to modmath.modmul_burn.
 
 Operands are int32 tensors of uint32 residue bits on the CUDA device of
 `ops` (a DeviceLevelOps: its kernel tables give q and -q^-1 mod 2^32 per
@@ -33,7 +37,9 @@ new contiguous int32 tensors.
 `LAUNCHES` counts launches by kernel and form ("mod_ew", "mod_ew_multi",
 "mod_ew_mac", "tensor_product", "divide_last"), and `OPS` counts the
 single and multi forms of E1 by op; both are incremented only where a
-kernel is launched."""
+kernel is launched. E4's launches are counted apart, in
+`PROBE_LAUNCHES`: every kernel in `LAUNCHES` runs on every program
+path, and E4 on none."""
 
 from __future__ import annotations
 
@@ -53,6 +59,7 @@ LIB_PATH = os.path.join(cuda_lib.BUILD_DIR, "libeva_modmath.so")
 LAUNCHES = {"mod_ew": 0, "mod_ew_multi": 0, "mod_ew_mac": 0,
             "tensor_product": 0, "divide_last": 0}
 OPS = Counter()
+PROBE_LAUNCHES = {"modmul_burn": 0}
 
 # E1's ops, by their csrc/modmath.cu enum value, and the operands each
 # reads.
@@ -69,7 +76,8 @@ VEC = 4         # kVec: words a thread handles where operands allow
 INFO_NAMES = ([f"mod_ew_{op}" for op in OP_CODES]
               + [f"mod_ew_multi_{op}" for op in OP_CODES]
               + ["mod_ew_mac", "tensor_product"]
-              + [f"divide_last_k{k}" for k in range(1, MAX_DIV + 1)])
+              + [f"divide_last_k{k}" for k in range(1, MAX_DIV + 1)]
+              + ["modmul_burn"])
 
 _lib = None
 _lock = threading.Lock()
@@ -104,6 +112,9 @@ def _load():
                 [i, pp, pp, pp, p, p, p, ctypes.POINTER(ctypes.c_uint), i,
                  ctypes.c_longlong, i, i, i, p])
             lib.eva_divide_last.restype = i
+            lib.eva_modmul_burn.argtypes = [p, p, p, p, i, i,
+                                            ctypes.c_longlong, p]
+            lib.eva_modmul_burn.restype = i
             lib.eva_modmath_info.argtypes = [ctypes.POINTER(i)]
             lib.eva_modmath_info.restype = i
             _lib = lib
@@ -482,3 +493,36 @@ def divide_last(xs, pinv: torch.Tensor, ps, ops, addends=None) -> list:
     cuda_lib.raise_on(name, err)
     LAUNCHES["divide_last"] += 1
     return outs
+
+
+def modmul_burn(ops, x: torch.Tensor) -> torch.Tensor:
+    """E4: x [..., n_sub, N] (int32 residue bits, any value below 2^32)
+    after modmath.BURN_K dependent Montgomery multiplies of each word by
+    3, 5, 3, ..., row by row on the primes of `ops`: one launch on a CUDA
+    tensor, the plain version modmath.modmul_burn on a CPU tensor."""
+    from . import modmath as M
+    name = "CUDA modmul_burn"
+    if x.dim() < 2 or x.shape[-2] != len(ops.primes):
+        raise ValueError(f"{name}: shape {tuple(x.shape)} against "
+                         f"{len(ops.primes)} primes")
+    if not x.is_cuda:
+        if x.device.type != "cpu" or x.dtype != torch.int32:
+            raise ValueError(f"{name}: expected int32 residues on the CPU "
+                             f"or a CUDA device, got {x.dtype} on "
+                             f"{x.device}")
+        return M.modmul_burn(x, ops.q, ops.rinv)
+    cuda_lib.check_tensor(x, ops.device, name)
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    n = x.shape[-1]
+    cuda_lib.check_ring(n, name)
+    lib, tab = _load(), ops.kernel_tables()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.eva_modmul_burn(
+        x.data_ptr(), out.data_ptr(), tab["q"].data_ptr(),
+        tab["nqinv"].data_ptr(), n.bit_length() - 1, len(ops.primes),
+        x.numel(), stream)
+    cuda_lib.raise_on(name, err)
+    PROBE_LAUNCHES["modmul_burn"] += 1
+    return out

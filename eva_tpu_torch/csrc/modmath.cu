@@ -22,8 +22,13 @@
 //                      looped over the k primes of a rescale (or the n_key
 //                      key primes of a P-division) and over the 1-3
 //                      polynomials of the call, with an optional addend
-// Plain PyTorch versions: eva_tpu_torch/backend/modmath.py (E1, E2) and
-// backend/ks.py divide_last_plain (E3). Every formula is the JAX
+//   E4 modmul_burn     bench.py measure_vpu_modmul: a chain of 16 dependent
+//                      Montgomery multiplies of each word by 3 and 5 in
+//                      turn, which XLA fuses into one pass; the
+//                      benchmark's modular-multiply rate probe (on no
+//                      program's path)
+// Plain PyTorch versions: eva_tpu_torch/backend/modmath.py (E1, E2, E4)
+// and backend/ks.py divide_last_plain (E3). Every formula is the JAX
 // package's, written literally (a compare and select where it has
 // jnp.where), so the results are its uint32 results bit for bit, for
 // every input it accepts (unreduced first operands up to 2^32 for the
@@ -498,6 +503,31 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// E4: out = x times 3, 5, 3, ... (kBurnK Montgomery multiplies, each on
+// the previous product) per word of a contiguous [rows, 2^logn] plane, row
+// r on prime r % n_sub. A plain grid-stride loop: each word's chain stays
+// in registers, so the multiplies, not the 8 bytes a word moves, bound it
+// (16 32-bit Montgomery multiplies of 6 integer instructions each against
+// 8 bytes).
+constexpr int kBurnK = 16;
+__global__ void __launch_bounds__(kThreads)
+    modmul_burn_kernel(const uint32_t* __restrict__ x,
+                       uint32_t* __restrict__ out,
+                       const uint32_t* __restrict__ qs,
+                       const uint32_t* __restrict__ nqinvs, int logn,
+                       int n_sub, unsigned total) {
+  for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += gridDim.x * blockDim.x) {
+    const unsigned p = (i >> logn) % (unsigned)n_sub;
+    const uint32_t q = __ldg(qs + p), nqinv = __ldg(nqinvs + p);
+    uint32_t v = __ldg(x + i);
+#pragma unroll
+    for (int j = 0; j < kBurnK; ++j)
+      v = mont_mul(v, (j & 1) ? 5u : 3u, q, nqinv);
+    out[i] = v;
+  }
+}
+
 // The grid of `rows` block rows of n words, W words a thread: one block
 // per row and kThreads * W columns.
 template <int W>
@@ -739,11 +769,33 @@ int eva_divide_last(int polys, const void* const* x, const void* const* add,
   }
 }
 
+// E4: out [rows, 2^logn] = x after kBurnK Montgomery multiplies by 3, 5
+// in turn, row r on prime r % n_sub of the tables q, nqinv; x and out
+// contiguous, total = rows 2^logn words (< 2^31). A grid of at most eight
+// blocks per SM, striding over the words.
+int eva_modmul_burn(const void* x, void* out, const void* q, const void* nqinv,
+                    int logn, int n_sub, long long total, void* stream) {
+  if (logn < 0 || logn > 30 || n_sub <= 0 || total <= 0 ||
+      total > 0x7fffffffLL || total % (1LL << logn) != 0)
+    return (int)cudaErrorInvalidValue;
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  const long long want = (total + kThreads - 1) / kThreads;
+  const unsigned blocks = (unsigned)(want < 8LL * sms ? want : 8LL * sms);
+  modmul_burn_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)x, (uint32_t*)out, (const uint32_t*)q,
+      (const uint32_t*)nqinv, logn, n_sub, (unsigned)total);
+  return (int)cudaGetLastError();
+}
+
 // Resource use, for reports: out[2j], out[2j + 1] = registers and local
 // (spill) bytes per thread of kernel j, in this order, each at 4 words a
 // thread: the single form of E1 op k (k < 6), its multi form (k < 6), the
-// MAC form, E2 (one word a thread), E3 at k = 1 .. 8. Returns the count of
-// kernels, or minus a cudaError_t.
+// MAC form, E2 (one word a thread), E3 at k = 1 .. 8, E4. Returns the count
+// of kernels, or minus a cudaError_t.
 int eva_modmath_info(int* out) {
   const void* fns[] = {
       (const void*)mod_ew_kernel<kAdd, kVec>,
@@ -767,7 +819,8 @@ int eva_modmath_info(int* out) {
       (const void*)divide_last_kernel<5, kVec>,
       (const void*)divide_last_kernel<6, kVec>,
       (const void*)divide_last_kernel<7, kVec>,
-      (const void*)divide_last_kernel<8, kVec>};
+      (const void*)divide_last_kernel<8, kVec>,
+      (const void*)modmul_burn_kernel};
   const int count = (int)(sizeof(fns) / sizeof(fns[0]));
   for (int j = 0; j < count; ++j) {
     cudaFuncAttributes attr;

@@ -2,7 +2,8 @@
 
 Keys and encryption noise come from the OS CSPRNG, so the MSE against the
 plaintext reference differs from run to run; this script draws it many
-times to set chip_smoke.py's limit. It runs the port's host numpy backend,
+times to set bench_torch.MSE_LIMIT, which chip_smoke.py and the bench
+hold. It runs the port's host numpy backend,
 whose output ciphertexts chip_smoke.py holds bit-identical to the card's.
 
     python3 mse_draws.py harris 48
@@ -17,7 +18,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-import chip_smoke  # noqa: E402
+import bench_torch  # noqa: E402
 from eva_tpu_torch import evaluate  # noqa: E402
 from eva_tpu_torch.ckks import CKKSCompiler  # noqa: E402
 from eva_tpu_torch.metric import valuation_mse  # noqa: E402
@@ -25,9 +26,9 @@ from eva_tpu_torch.runtime import generate_keys  # noqa: E402
 
 
 def main(name: str, draws: int) -> None:
-    build, seed = {"sobel": (chip_smoke.build_sobel, 11),
-                   "harris": (chip_smoke.build_harris, 13),
-                   "sobel128": (lambda: chip_smoke.build_sobel(128, 128),
+    build, seed = {"sobel": (bench_torch.build_sobel, 11),
+                   "harris": (bench_torch.build_harris, 13),
+                   "sobel128": (lambda: bench_torch.build_sobel(128, 128),
                                 19)}[name]
     prog = build()
     compiled, params, sig = CKKSCompiler(

@@ -1,7 +1,7 @@
 """The CUDA kernels (eva_tpu_torch/csrc/ntt.cu: the NTT; csrc/ks.cu: the
 fused key switch's MAC and epilogue; csrc/modmath.cu: the elementwise
 modular ops E1 in their single, several-planes and MAC forms, the tensor
-product E2, the divide-last E3) against their
+product E2, the divide-last E3, the bench's rate probe E4) against their
 plain PyTorch versions, and their wrappers' refusals, on a CUDA GPU;
 whole programs of tools/fuzz_cuda.py (random and from the reference's
 matrices) against the numpy backend and the plain versions; every test
@@ -481,6 +481,31 @@ def test_cuda_mod_ew_reads_strided_operands_in_place(cuda):
     cols = torch.cat([wide, wide], -1)[:, :11, 3:3 + 16384]
     assert torch.equal(dev.add(cols, other),
                        M.add_mod(cols.contiguous(), other, dev.q))
+
+
+@pytest.mark.parametrize("lead,n_sub,n", [((8,), 12, 16384),
+                                           ((32,), 6, 16384),
+                                           ((2,), 13, 1024), ((), 1, 32768)])
+def test_cuda_modmul_burn_matches_plain(cuda, lead, n_sub, n):
+    """E4 (bench_torch.py's modular-multiply rate probe) against its plain
+    version on reduced and unreduced words: one launch each, counted in
+    PROBE_LAUNCHES and not in LAUNCHES; a plane of the wrong prime count
+    raises."""
+    primes = [q for e in build_chain([60] * 7, n) for q in e.primes][:n_sub]
+    dev, host = level_ops(primes, n, cuda), level_ops(primes, n, "cpu")
+    rng = np.random.default_rng(n_sub)
+    unreduced = upload(rng.integers(0, 2 ** 32, lead + (n_sub, n),
+                                    dtype=np.uint64), "cpu")
+    for x in (_planes(n + n_sub, primes, lead + (n,)), unreduced):
+        launches = dict(modmath_cuda.LAUNCHES)
+        probe = modmath_cuda.PROBE_LAUNCHES["modmul_burn"]
+        got = modmath_cuda.modmul_burn(dev, x.to(cuda))
+        assert modmath_cuda.PROBE_LAUNCHES["modmul_burn"] == probe + 1
+        assert modmath_cuda.LAUNCHES == launches
+        want = M.modmul_burn(x, host.q, host.rinv)
+        assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+    with pytest.raises(ValueError, match="primes"):
+        modmath_cuda.modmul_burn(dev, x.to(cuda)[..., :0, :])
 
 
 def test_cuda_modmath_kernels_fit_the_card(cuda):

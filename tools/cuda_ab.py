@@ -112,7 +112,7 @@ def execute_times(smoke, name, pub, compiled, enc, reps: int,
     res = {"execute_ms_median": statistics.median(times),
            "execute_ms_all": times, **(prof or {})}
     if captured:
-        entry = smoke.captured_entry(pub, compiled, enc)
+        entry = smoke.captured_entry(pub, compiled, [enc])
         res["replay_ms_all"] = [smoke.replay_ms(entry) for _ in range(reps)]
         res["replay_ms"] = statistics.median(res["replay_ms_all"])
     return res
