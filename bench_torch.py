@@ -232,6 +232,54 @@ def card_line() -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
+# Launch counters of the kernel wrappers and plain-version calls, by
+# counter name (read_counts); the NTT rows-per-launch histogram is
+# ntt_cuda.ROWS.
+COUNTERS = ("ntt_launches", "plain_calls", "ks_launches", "ks_plain_calls",
+            "ks_max_batch", "modmath_launches", "modmath_plain_calls",
+            "modmath_ops", "probe_launches")
+# The counters of the kernels a program's path launches (K1, K2, K4, K5,
+# E1 by form, E2, E3).
+PATH_COUNTERS = ("ntt_launches", "ks_launches", "modmath_launches")
+
+
+def _counters():
+    from eva_tpu_torch.backend import (ks, ks_cuda, modmath, modmath_cuda,
+                                       ntt_cuda, tables)
+    return (ntt_cuda.LAUNCHES, tables.PLAIN_CALLS, ks_cuda.LAUNCHES,
+            ks.PLAIN_CALLS, ks_cuda.MAX_BATCH, modmath_cuda.LAUNCHES,
+            modmath.PLAIN_CALLS, modmath_cuda.OPS,
+            modmath_cuda.PROBE_LAUNCHES)
+
+
+def reset_counts():
+    """Every counter of COUNTERS, and the NTT row histogram, to 0."""
+    from eva_tpu_torch.backend import modmath_cuda, ntt_cuda
+    for counts in _counters():
+        for k in counts:
+            counts[k] = 0
+    for rows in ntt_cuda.ROWS.values():
+        rows.clear()
+    modmath_cuda.OPS.clear()
+
+
+def read_counts():
+    """{counter name: {kernel: count}} (see COUNTERS)."""
+    return {name: dict(c) for name, c in zip(COUNTERS, _counters())}
+
+
+def path_launches(counts=None) -> dict:
+    """{kernel: launches} of the PATH_COUNTERS in `counts` (read_counts(),
+    by default read now), and "plain_calls": every plain-version call
+    (NTT, key switch, modmath) summed."""
+    counts = read_counts() if counts is None else counts
+    out = {k: v for c in PATH_COUNTERS for k, v in counts[c].items()}
+    out["plain_calls"] = sum(
+        v for c in ("plain_calls", "ks_plain_calls", "modmath_plain_calls")
+        for v in counts[c].values())
+    return out
+
+
 # -- inputs ------------------------------------------------------------------
 
 
@@ -372,20 +420,22 @@ def rotation_shim(ctx, keys, device):
                         TermMap(Type.Undef), [], device)
 
 
-def rotation_step(ctx, keys, device=None, batch: int = BATCH_ROT):
-    """(step, x): bench.py's rotation chain at level 0: step(p) is the sum
-    of the two outputs of TorchProgram._rotate([p, p], 1, 0) (the
-    automorphism, the fused key switch K4 + K5 around K1 and K2, and E1),
-    on host_planes(seed 7) of `batch` ciphertext components."""
+def rotation_step(ctx, keys, device=None, batch: int = BATCH_ROT,
+                  level: int = 0):
+    """(step, x): bench.py's rotation chain at `level`: step(p) is the sum
+    of the two outputs of TorchProgram._rotate([p, p], 1, level) (the
+    automorphism, the key switch around K1 and K2 (the fused one, K4 +
+    K5, unless EVA_TPU_NO_FUSED_KS is set when step runs), and E1), on
+    host_planes(seed 7) of `batch` ciphertext components."""
     from eva_tpu_torch.backend import resolve_device
     from eva_tpu_torch.backend.tables import level_ops
     device = resolve_device(device)
-    primes = ctx.primes_at_level(0)
+    primes = ctx.primes_at_level(level)
     shim = rotation_shim(ctx, keys, device)
     dev = level_ops(primes, ctx.n, device)
 
     def step(p):
-        out = shim._rotate([p, p], 1, 0, dev)
+        out = shim._rotate([p, p], 1, level, dev)
         return dev.add(out[0], out[1])
 
     return step, _planes(primes, ctx.n, batch, 7, device)

@@ -116,7 +116,21 @@ Phases (any failure exits non-zero and prints no result line):
      positive, every sol_pct and compute_pct at most 105, K1, K2, K4,
      K5, E1 in its three forms, E2, E3 and E4 launched, no plain
      version called; one `bench {...}` line; its counts appear as
-     launches_by_path["bench"].
+     launches_by_path["bench"]. Then the tools phase (tools_phase): the
+     port's tools as subprocesses on the card, each to exit 0 with a
+     whole last line (check_tool_line): tools/sweep_alpha_torch.py (the
+     rotation at every alpha, level and ring size of the sweep on both
+     key-switch routes, each first held to the plain versions on the
+     host with torch.equal, then timed; its noise leg equal to the numpy
+     backend), tools/bench_two_entry_torch.py (the same for one and two
+     key entries), tools/bench_scaling_torch.py at a small size on one
+     NCCL rank on the card and on two gloo ranks on the host (its reduced
+     outputs equal to the one-process step), tools/reproduce_torch.py e2e
+     (MSE below 0.01);
+     the launches the card tools report appear as
+     launches_by_path["tools"]. The kernel phase holds K4 and K5 at the
+     sweep's new shapes too (alpha 1 at N = 16384 and 8192, the two-entry
+     key's n_key 4 at alpha 4, batch 8), timed, in their `by_shape`.
   4. One JSON line of kernel numbers, K1, K2, K4, K5, E1 (its single,
      several-planes and MAC forms as mod_ew, mod_ew_multi, mod_ew_mac),
      E2, E3 and E4 (its launches those of the bench run)
@@ -140,7 +154,8 @@ import numpy as np
 import bench_torch
 from bench_torch import (HBM_BYTES_PER_S, INT32_OPS_PER_S, MSE_LIMIT,
                          OPS_PER_MONT_MUL, build_harris, build_sobel,
-                         captured_entry, card_line, replay_ms)
+                         captured_entry, card_line, read_counts,
+                         replay_ms, reset_counts)
 
 SEED = 20260
 # Integer ops per radix-2 butterfly of the modular arithmetic alone:
@@ -372,16 +387,29 @@ KS_SHAPES = (
     ("n_key1", (60, 40, 60, 30), 1, 16384, 0, 1, (1,)),
     ("sobel_l0", SOBEL_BITS, 1, 1024, 0, 2, (4,)),
     ("sobel_l0", SOBEL_BITS, 1, 32768, 0, 2, (1,)),
+    # tools/sweep_alpha_torch.py's and bench_two_entry_torch.py's
+    # rotations at their batch of 8: alpha 1 at N = 16384 (12 data primes,
+    # twelve digit groups) and N = 8192, and the two-entry key (n_key 4,
+    # alpha 4: groups of 4, 4, 2).
+    ("sweep_alpha1", [60] * 7, 1, 16384, 0, 1, (8,)),
+    ("sweep_alpha1", [60] * 3, 1, 8192, 0, 1, (8,)),
+    ("two_entry_alpha4", [60] * 7, 2, 16384, 0, 4, (8,)),
 )
-TIMED_KS = ("sobel_l0", 16384, (1, 4))
+# The shapes timed, each keyed f"{label}_N{n}_B{batch}" in K4's and K5's
+# `by_shape` (with registers, spills and the MAC's cluster size): the one
+# an execute launches (KS_MAIN), Sobel's at B=4 (KS_BATCH4) and the tools'.
+KS_MAIN, KS_BATCH4 = "sobel_l0_N16384_B1", "sobel_l0_N16384_B4"
+TIMED_KS = {KS_MAIN, KS_BATCH4, "sweep_alpha1_N16384_B8",
+            "sweep_alpha1_N8192_B8", "two_entry_alpha4_N16384_B8"}
 
 
 def ks_kernel_phase(device):
     """Phase 2, fused key switch: ks_mac and ks_epilogue against their
     plain versions at every KS_SHAPES shape (with and without x_ntt,
-    out_ntt True and False); returns the numbers of the shapes one
-    execute launches (Sobel level 0, B=1, with x_ntt / out_ntt) and those
-    at B=4."""
+    out_ntt True and False); returns the numbers of the TIMED_KS shapes
+    (with x_ntt / out_ntt), keyed (kernel, f"{label}_N{n}_B{batch}"), each
+    with the kernels' registers and spill bytes (and the MAC's cluster
+    size) at its ring and key-prime count."""
     import torch
     from eva_tpu_torch.backend import ks, ks_cuda
     from eva_tpu_torch.backend.executor_torch import _ks_dev_tables, _ks_maps
@@ -422,7 +450,16 @@ def ks_kernel_phase(device):
             acc0, acc1 = planes((batch,), basis), planes((batch,), basis)
             shape = f"N={n} B={batch} n_cur={n_cur} n_key={n_key} " \
                     f"alpha={alpha} groups={n_groups}"
-            timed = (label, n) == TIMED_KS[:2] and batch in TIMED_KS[2]
+            key = f"{label}_N{n}_B{batch}"
+            timed = key in TIMED_KS
+            info = ks_cuda.kernel_info(ext.logn, device, n_key)
+            resources = {
+                "ks_mac": {**info["ks_mac_cluster_kernel"],
+                           "cluster": ks_cuda.mac_cluster(
+                               ext.logn, n_groups, n_ext * batch, device)},
+                "ks_epilogue": {
+                    "key_kernel": info["ks_epilogue_key_kernel"],
+                    "row_kernel": info["ks_epilogue_row_kernel"]}}
             for xn in (x_ntt, None):
                 got = ks_cuda.ks_mac(y, k0, k1, conv, own, ext, xn)
                 want = ks.ks_mac_plain(y, k0, k1, conv, own, ext, xn)
@@ -445,10 +482,10 @@ def ks_kernel_phase(device):
                         y, k0, k1, conv, own, ext, xn), 2, reps=3),
                     "bound_ms": bms, "bound_by": bby,
                     "max_abs_err": max(int((g - w).abs().max().item())
-                                       for g, w in zip(got, want))}
-                print(f"kernel ks_mac B={batch} " + json.dumps(res),
-                      flush=True)
-                results[("ks_mac", batch)] = res
+                                       for g, w in zip(got, want)),
+                    **resources["ks_mac"]}
+                print(f"kernel ks_mac {key} " + json.dumps(res), flush=True)
+                results[("ks_mac", key)] = res
             for out_ntt in (True, False):
                 got = ks_cuda.ks_epilogue(acc0, acc1, ext, n_key, out_ntt)
                 want = ks.ks_epilogue_plain(acc0, acc1, ext, n_key, out_ntt)
@@ -472,10 +509,11 @@ def ks_kernel_phase(device):
                         acc0, acc1, ext, n_key, True), 2, reps=3),
                     "bound_ms": bms, "bound_by": bby,
                     "max_abs_err": max(int((g - w).abs().max().item())
-                                       for g, w in zip(got, want))}
-                print(f"kernel ks_epilogue B={batch} " + json.dumps(res),
+                                       for g, w in zip(got, want)),
+                    **resources["ks_epilogue"]}
+                print(f"kernel ks_epilogue {key} " + json.dumps(res),
                       flush=True)
-                results[("ks_epilogue", batch)] = res
+                results[("ks_epilogue", key)] = res
     return results
 
 
@@ -864,35 +902,6 @@ def record_form(results, key, label, shape, kern, plain, inputs, ops,
     print(f"kernel {' '.join(map(str, key))} {label} " + json.dumps(res),
           flush=True)
     results[key + (label,)] = res
-
-
-COUNTERS = ("ntt_launches", "plain_calls", "ks_launches", "ks_plain_calls",
-            "ks_max_batch", "modmath_launches", "modmath_plain_calls",
-            "modmath_ops", "probe_launches")
-
-
-def _counters():
-    from eva_tpu_torch.backend import (ks, ks_cuda, modmath, modmath_cuda,
-                                       ntt_cuda, tables)
-    return (ntt_cuda.LAUNCHES, tables.PLAIN_CALLS, ks_cuda.LAUNCHES,
-            ks.PLAIN_CALLS, ks_cuda.MAX_BATCH, modmath_cuda.LAUNCHES,
-            modmath.PLAIN_CALLS, modmath_cuda.OPS,
-            modmath_cuda.PROBE_LAUNCHES)
-
-
-def reset_counts():
-    from eva_tpu_torch.backend import modmath_cuda, ntt_cuda
-    for counts in _counters():
-        for k in counts:
-            counts[k] = 0
-    for rows in ntt_cuda.ROWS.values():
-        rows.clear()
-    modmath_cuda.OPS.clear()
-
-
-def read_counts():
-    """{counter name: {kernel: count}} (see COUNTERS)."""
-    return {name: dict(c) for name, c in zip(COUNTERS, _counters())}
 
 
 def read_rows():
@@ -1774,6 +1783,109 @@ def check_bench_line(line):
         raise AssertionError(f"bench: {bad}")
 
 
+# The port's tools, run as subprocesses by tools_phase: (name, command,
+# the kernels its card run must launch; None for the host rehearsal).
+# Each tool checks its own results and exits non-zero on a failure: the
+# sweep's and the A/B's rotations against the plain versions and their
+# noise legs against the numpy backend, the scaling identity, the e2e
+# MSE. The scaling runs are small: they check the path and its identity
+# (the full-size timings are the standalone runs').
+KS_ROUTES = ("ntt_fwd", "ntt_inv", "ks_mac", "ks_epilogue", "mod_ew_mac",
+             "divide_last")
+SMALL_SCALING = ["--n", "1024", "--limbs", "2", "--batch", "4", "--reps", "1"]
+TOOLS = (
+    ("sweep_alpha", ["tools/sweep_alpha_torch.py"], KS_ROUTES),
+    ("two_entry", ["tools/bench_two_entry_torch.py"], KS_ROUTES),
+    ("scaling_nccl", ["tools/bench_scaling_torch.py", "--hosts", "1"]
+     + SMALL_SCALING, ("ntt_fwd", "ntt_inv")),
+    ("scaling_gloo", ["tools/bench_scaling_torch.py", "--cpu", "--hosts",
+                      "2"] + SMALL_SCALING, None),
+    ("reproduce_e2e", ["tools/reproduce_torch.py", "e2e"],
+     ("ntt_fwd", "ntt_inv", "ks_mac", "ks_epilogue")),
+)
+
+
+def check_tool_line(name: str, need, line: dict) -> dict:
+    """A tool's last line, beyond the checks the tool makes itself: a card
+    tool names the card, launched every kernel of `need` and called no
+    plain version; the sweep timed alpha 1 and 2 at both rings and
+    skipped alpha 3 and 4 as duplicates of alpha 2. Returns the card
+    launches the tool reports ({} for the host rehearsal), or raises."""
+    bad = []
+    launches = (line["e2e"] if "e2e" in line else line)["launches"]
+    if need is None:
+        launches = {}
+    elif (launches["plain_calls"] or not all(launches[k] for k in need)
+          or not line["card"]):
+        bad.append(f"launches {launches}, card {line['card']}")
+    if name == "sweep_alpha":
+        timed = {(c["n"], c["alpha"]) for c in line["configs"]
+                 if "same_groups_as_alpha" not in c}
+        dup = {(c["n"], c["alpha"]): c["same_groups_as_alpha"]
+               for c in line["configs"] if "same_groups_as_alpha" in c}
+        if timed != {(n, a) for n in (16384, 8192) for a in (1, 2)}:
+            bad.append(f"configs {timed}")
+        if dup != {(n, a): 2 for n in (16384, 8192) for a in (3, 4)}:
+            bad.append(f"duplicates {dup}")
+    if bad:
+        raise AssertionError(f"tool {name}: {bad}")
+    return {k: v for k, v in launches.items() if k != "plain_calls"}
+
+
+def tools_phase():
+    """The port's tools (TOOLS) as subprocesses, each to exit 0 with a
+    whole last line (check_tool_line): the alpha sweep, the two-entry
+    A/B, the scaling rehearsal on one NCCL rank and on two gloo ranks,
+    reproduce_torch.py e2e. The host rehearsal (need None) runs beside
+    the card tools, which run one after another. Returns their card
+    launches summed, in read_counts()'s form (the path counters)."""
+    from eva_tpu_torch.backend import ks_cuda, modmath_cuda, ntt_cuda
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    total, seconds = {}, {}
+
+    procs = []
+
+    def start(name, cmd, need):
+        procs.append(subprocess.Popen(
+            [sys.executable] + cmd, cwd=root, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+        return name, need, time.perf_counter(), procs[-1]
+
+    def finish(name, need, t0, proc):
+        out, err = proc.communicate(timeout=600)
+        seconds[name] = time.perf_counter() - t0
+        lines = out.strip().splitlines()
+        for line in lines:
+            print(f"tool {name}: {line}", flush=True)
+        if proc.returncode != 0 or not lines:
+            raise AssertionError(f"tool {name} exited {proc.returncode}:\n"
+                                 f"{err[-4000:]}")
+        for k, v in check_tool_line(name, need,
+                                    json.loads(lines[-1])).items():
+            total[k] = total.get(k, 0) + v
+
+    host = [start(*tool) for tool in TOOLS if tool[2] is None]
+    try:
+        for tool in TOOLS:
+            if tool[2] is not None:
+                finish(*start(*tool))
+        for tool in host:
+            finish(*tool)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print("tools " + json.dumps({"s": seconds, "launches": total}),
+          flush=True)
+    return {counter: {k: total.get(k, 0) for k in kernels}
+            for counter, kernels in (
+                ("ntt_launches", ntt_cuda.LAUNCHES),
+                ("ks_launches", ks_cuda.LAUNCHES),
+                ("modmath_launches", modmath_cuda.LAUNCHES))}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1870,6 +1982,9 @@ def main() -> int:
     t0 = time.perf_counter()
     _, paths["bench"], _ = entry_phase()
     print(f"entry_phase_s {time.perf_counter() - t0:.2f}", flush=True)
+    t0 = time.perf_counter()
+    paths["tools"] = tools_phase()
+    print(f"tools_phase_s {time.perf_counter() - t0:.2f}", flush=True)
 
     # -- 4. the kernel line, then the device line ----------------------------
     ntt_info = ntt_cuda.kernel_info(14, device)
@@ -1883,7 +1998,7 @@ def main() -> int:
             ("ks_epilogue", "ks_launches", "ks.cu", "pallas_ks.py:145",
              None)):
         ntt = counter == "ntt_launches"
-        k = kern[(name, "sobel_l0" if ntt else 1)]
+        k = kern[(name, "sobel_l0" if ntt else KS_MAIN)]
         entry = {
             "name": name, "route": "cuda",
             "source": f"eva_tpu_torch/csrc/{source}",
@@ -1920,7 +2035,10 @@ def main() -> int:
                         for f in fields + ("cluster",)}
                 for label, *_ in NTT_SHAPES}
         else:
-            entry["batch4"] = {f: kern[(name, 4)][f] for f in fields}
+            entry["batch4"] = {f: kern[(name, KS_BATCH4)][f]
+                               for f in fields}
+            entry["by_shape"] = {key[1]: v for key, v in kern.items()
+                                 if key[0] == name}
         kernels.append(entry)
     ew_info = modmath_cuda.kernel_info(device)
     fields = ("shape", "ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",

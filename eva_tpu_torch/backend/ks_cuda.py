@@ -56,6 +56,8 @@ def _load(device: torch.device):
             lib.eva_ks_epilogue.restype = i
             lib.eva_ks_info.argtypes = [i, i, ctypes.POINTER(i)]
             lib.eva_ks_info.restype = i
+            lib.eva_ks_mac_cluster.argtypes = [i, i, i, ctypes.POINTER(i)]
+            lib.eva_ks_mac_cluster.restype = i
             _lib = lib
         if device.index not in _ready_devices:
             with torch.cuda.device(device):
@@ -80,6 +82,20 @@ def kernel_info(logn: int, device: torch.device, n_key: int = 2) -> dict:
             **{k: {"registers": out[2 * j], "local_bytes": out[2 * j + 1]}
                for j, k in enumerate(names)},
             "mac_max_active_clusters": {c: out[6 + c] for c in range(1, 9)}}
+
+
+def mac_cluster(logn: int, n_groups: int, clusters: int,
+                device: torch.device) -> int:
+    """The cluster size a MAC launch takes at a ring of 2^logn on
+    `device`: `clusters` (n_ext x batch) clusters over n_groups digit
+    groups (ks.cu's mac_cluster_size)."""
+    lib = _load(device)
+    c = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        cuda_lib.raise_on("CUDA key switch cluster size",
+                          lib.eva_ks_mac_cluster(logn, n_groups, clusters,
+                                                 ctypes.byref(c)))
+    return c.value
 
 
 def _shape(x: torch.Tensor, want, name: str) -> None:

@@ -544,6 +544,15 @@ int eva_ks_info(int logn, int n_key, int* out) {
   return 0;
 }
 
+// The cluster size C that a MAC launch of `clusters` = n_ext * B clusters
+// over n_groups digits takes at a ring of 2^logn (mac_cluster_size), for
+// reports.
+int eva_ks_mac_cluster(int logn, int n_groups, int clusters, int* c) {
+  if (mac_kernel(logn) == nullptr || n_groups <= 0 || clusters <= 0)
+    return (int)cudaErrorInvalidValue;
+  return (int)mac_cluster_size(logn, n_groups, clusters, c);
+}
+
 // The MAC for `batch` elements; returns the cudaError_t of the launch.
 // x_ntt may be null (no own-row reads).
 int eva_ks_mac(const void* y, const void* x_ntt, const void* k0,

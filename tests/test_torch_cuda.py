@@ -188,6 +188,19 @@ def test_cuda_key_switch_kernels_fit_the_card(cuda):
         "local_bytes"] <= 64
 
 
+def test_cuda_key_switch_cluster_size_reported_as_launched(cuda):
+    """ks_cuda.mac_cluster reports ks.cu's choice: at Sobel's level 0 (six
+    digit groups, 13 ext rows) clusters of 6 at B=1 and of 2 at B=4, never
+    more than the groups or 8; a ring the kernels do not take raises."""
+    assert ks_cuda.mac_cluster(14, 6, 13, cuda) == 6
+    assert ks_cuda.mac_cluster(14, 6, 52, cuda) == 2
+    for groups in (1, 3, 12):
+        assert 1 <= ks_cuda.mac_cluster(14, groups, 14 * 8, cuda) <= min(
+            groups, 8)
+    with pytest.raises(RuntimeError):
+        ks_cuda.mac_cluster(9, 6, 13, cuda)
+
+
 def test_cuda_key_switch_wrappers_reject_what_the_kernels_do_not_take(cuda):
     y, k0, k1, conv, owner, x_ntt, acc0, acc1, ext, n_key = _ks_inputs(
         cuda, 1024, 2)
