@@ -89,10 +89,17 @@ Phases (any failure exits non-zero and prints no result line):
      without a mesh, through the captured program (K1, K2, K4, K5
      launched, counted as path sobel_mesh; no plain version), both timed
      in turns; ShardedKeySwitch and ShardedNTT at one shard against the
-     fused key switch and K1; the one-rank collective overhead; with
-     more than one card, Sobel on {batch, limb} and {seq} meshes of one
-     rank per card against one card (this script's --mesh-rank
-     processes, waited for). Then
+     fused key switch and K1, eagerly and as graph replays; the one-rank
+     collective overhead; the digit-parallel, seq and dp+seq programs
+     forced on the same mesh (TorchProgram._force_plan), each replayed
+     from its captured graph with its NCCL collectives inside, over two
+     batches bit-identical to the batch without a mesh and to its own
+     eager run, captured and eager timed in turns (counted as paths
+     sobel_mesh_dp, sobel_mesh_seq and sobel_mesh_dp_seq: only the
+     kernels of each plan, no plain version); with more than one card,
+     Sobel on {batch, limb} and {seq} meshes of one rank per card
+     against one card, each plan through a captured graph (this
+     script's --mesh-rank processes, waited for). Then
      eva_tpu_torch.profiling: the measured HBM roofline, profile()'s
      table and calibration, and estimate_program for each program beside
      its captured execute and device busy time. Then the fuzz phase
@@ -135,7 +142,8 @@ Phases (any failure exits non-zero and prints no result line):
      several-planes and MAC forms as mod_ew, mod_ew_multi, mod_ew_mac),
      E2, E3 and E4 (its launches those of the bench run)
      (keygen's launches under `launches_keygen`, the mesh phase's under
-     launches_by_path "sobel_mesh"), then the device line last.
+     launches_by_path "sobel_mesh" and "sobel_mesh_<plan>"), then the
+     device line last.
 
 Imports nothing of JAX and nothing of the JAX package eva_tpu."""
 
@@ -153,9 +161,10 @@ import numpy as np
 
 import bench_torch
 from bench_torch import (HBM_BYTES_PER_S, INT32_OPS_PER_S, MSE_LIMIT,
-                         OPS_PER_MONT_MUL, build_harris, build_sobel,
-                         captured_entry, card_line, read_counts,
-                         replay_ms, reset_counts)
+                         OPS_PER_MONT_MUL, PATH_COUNTERS, build_harris,
+                         build_sobel, captured_entry, card_line,
+                         path_launches, read_counts, replay_ms,
+                         reset_counts)
 
 SEED = 20260
 # Integer ops per radix-2 butterfly of the modular arithmetic alone:
@@ -192,7 +201,9 @@ def eager_ms(fn, iters: int, warmup: int = 3) -> float:
 def graph_ms(fn, iters: int, reps: int = 5) -> float:
     """Device ms per call of fn: `iters` calls captured in one CUDA graph
     and replayed `reps` times between CUDA events, so no host launch gap
-    separates the kernels."""
+    separates the kernels. The capture refuses unsafe calls of this
+    thread only: where fn runs NCCL collectives, the NCCL watchdog
+    thread queries CUDA events during it."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -201,7 +212,7 @@ def graph_ms(fn, iters: int, reps: int = 5) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -954,6 +965,16 @@ def check_int32(name, out):
         raise AssertionError(f"{name}: output planes not int32: {bad}")
 
 
+def check_launches(name, counts, launches):
+    """The path kernels' launches in `counts` (read_counts) are those a
+    capture counted (`launches`: _Captured.launches)."""
+    for counter in PATH_COUNTERS:
+        if {k: v for k, v in counts[counter].items() if v} != \
+                launches[counter]:
+            raise AssertionError(f"{name}: launched {counts[counter]}, the "
+                                 f"capture counted {launches[counter]}")
+
+
 def check_equal(name, want, got):
     """Output ciphertexts bit-identical, output by output."""
     for k in want:
@@ -1265,13 +1286,7 @@ def replay_phase(name, pub, compiled, enc, ref_out, reps=5):
     if any(_plain(counts).values()):
         raise AssertionError(f"{name}: a replay called a plain version: "
                              f"{counts}")
-    for counter, key in (("ntt_launches", "ntt_launches"),
-                         ("ks_launches", "ks_launches"),
-                         ("modmath_launches", "modmath_launches")):
-        got = {k: v for k, v in counts[counter].items() if v}
-        if got != entry.launches[key]:
-            raise AssertionError(f"{name}: a replay counted {got}, its "
-                                 f"capture {entry.launches[key]}")
+    check_launches(f"{name} replay", counts, entry.launches)
     times = execute_ms(pub, compiled, enc, reps)
     prof = profile_execute(name, pub, compiled, enc)
     check_replay_launches(name, prof, entry.launches)
@@ -1343,12 +1358,7 @@ def capture_phase(name, pub, compiled, enc, ref_out, reps=5):
     if prof is None:
         raise AssertionError(f"{name}: the profiler saw no device time")
     check_equal(f"{name}: eager against captured", captured, eager)
-    for counter in ("ntt_launches", "ks_launches", "modmath_launches"):
-        got = {k: v for k, v in counts[counter].items() if v}
-        if got != res["launches_per_execute"][counter]:
-            raise AssertionError(f"{name}: eager launched {got}, the "
-                                 f"capture counted "
-                                 f"{res['launches_per_execute'][counter]}")
+    check_launches(f"{name} eager", counts, res["launches_per_execute"])
     wall = statistics.median(times)
     res["eager"] = {"execute_ms_median": wall, "execute_ms_all": times,
                     "profile": prof,
@@ -1481,6 +1491,7 @@ def mesh_rank_main(rank: int, world: int, port: int, tmp: str) -> int:
         meshes = {"batch_limb": {"limb_axis": 2 if world % 2 == 0 else 1}}
         if seq_compatible(ctx.n, world):
             meshes["seq"] = {"seq_axis": world}
+        tp = pub._executor_for(compiled)._get_torch_program()
         results = {}
         for label, args in meshes.items():
             mesh = make_device_mesh(world, **args)
@@ -1492,11 +1503,23 @@ def mesh_rank_main(rank: int, world: int, port: int, tmp: str) -> int:
             t0 = time.perf_counter()
             pub.execute_batch(compiled, encs, mesh=mesh)
             torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / len(encs)
+            (plan,) = {v[1] for v in tp._sharded_cache.values()
+                       if v[0] is mesh}
+            # The plan ran as a replayed graph: the single-device
+            # program's for "batch", else one keyed by this mesh.
+            graphs = [e for e in tp._captured.values()
+                      if e.mesh is (None if plan == "batch" else mesh)]
             results[label] = {
                 "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
-                "bit_identical": equal,
-                "ms_per_request": (time.perf_counter() - t0) * 1e3
-                / len(encs)}
+                "plan": plan, "captured": bool(graphs),
+                "capture_s": [e.capture_s for e in graphs],
+                "graph_pool_bytes": [e.pool_bytes for e in graphs],
+                "bit_identical": equal, "ms_per_request": ms}
+            del graphs
+            # Its graphs hold NCCL work: the process groups' destroy
+            # waits for them.
+            pub.release_mesh(mesh)
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -1538,7 +1561,101 @@ def multi_card_mesh(pub, encs, want, world: int):
         if not res["bit_identical"]:
             raise AssertionError(f"sobel on the {label} mesh of {world} "
                                  f"cards differs from one card")
+        if not res["captured"]:
+            raise AssertionError(f"sobel on the {label} mesh of {world} "
+                                 f"cards: plan {res['plan']} ran no "
+                                 f"captured graph")
     return results
+
+
+# The forced one-rank mesh plans (TorchProgram._force_plan) and the
+# kernels each launches; every other kernel of the path stays at 0. dp's
+# key switches are digit-parallel and structured (digits, all-reduce,
+# iNTT, E3, NTT: no K4/K5, no E1 MAC form); seq routes every transform
+# through ShardedNTT, whose stages are E1 launches (no K1/K2), and MACs
+# structured digits (E1's MAC form); dp+seq takes neither K1/K2 nor the
+# MAC form.
+MESH_PLANS = {
+    "dp": {"ntt_fwd", "ntt_inv", "mod_ew", "mod_ew_multi", "tensor_product",
+           "divide_last"},
+    "seq": {"mod_ew", "mod_ew_multi", "mod_ew_mac", "tensor_product",
+            "divide_last"},
+    "dp+seq": {"mod_ew", "mod_ew_multi", "tensor_product", "divide_last"},
+}
+
+
+def check_plan_counts(name, counts, plan):
+    """The kernels of MESH_PLANS[plan] launched, no other kernel and no
+    plain version."""
+    launches = path_launches(counts)
+    ran = {k for k, v in launches.items() if v and k != "plain_calls"}
+    if ran != MESH_PLANS[plan] or launches["plain_calls"]:
+        raise AssertionError(f"{name}: launched {launches}, want "
+                             f"{sorted(MESH_PLANS[plan])}")
+
+
+def mesh_plan_phase(pub, compiled, mesh, batches, wants, plan, reps=3):
+    """One forced plan of Sobel's batch of 4 on the one-rank mesh. The
+    first call warms up, captures the plan's graph (its collectives
+    inside) and replays it on the first batch; a second replay, with
+    the counts reset just before and read just after, on another batch:
+    the kernels of the plan, as many as the capture counted. Each
+    replay bit-identical to its batch without a mesh (`wants`); the
+    first batch with TorchProgram._capture off (eager) bit-identical to
+    its replay, with the launches the capture counted; ms a request,
+    captured and eager in turns; device ms of one replay; the capture's
+    seconds and pool bytes."""
+    import torch
+
+    from eva_tpu_torch.backend.executor_torch import TorchProgram
+    tp = pub._executor_for(compiled)._get_torch_program()
+    name = f"sobel mesh {plan}"
+    TorchProgram._force_plan = plan
+    try:
+        got = pub.execute_batch(compiled, batches[0], mesh=mesh)
+        (entry,) = [e for k, e in tp._captured.items()
+                    if e.mesh is mesh and k[-1] == plan]
+        check_int32(name, entry.out)
+        for b, (w, g) in enumerate(zip(wants[0], got)):
+            check_equal(f"{name} element {b}", w, g)
+        reset_counts()
+        second = pub.execute_batch(compiled, batches[1], mesh=mesh)
+        counts = read_counts()
+        check_plan_counts(name, counts, plan)
+        check_launches(f"{name} replay", counts, entry.launches)
+        for b, (w, g) in enumerate(zip(wants[1], second)):
+            check_equal(f"{name} second batch element {b}", w, g)
+        TorchProgram._capture = False
+        try:
+            reset_counts()
+            eager = pub.execute_batch(compiled, batches[0], mesh=mesh)
+            eager_counts = read_counts()
+        finally:
+            TorchProgram._capture = True
+        check_launches(f"{name} eager", eager_counts, entry.launches)
+        for b, (g, e) in enumerate(zip(got, eager)):
+            check_equal(f"{name} eager element {b}", g, e)
+        ms = {"captured": [], "eager": []}
+        for label in ("captured", "eager", "eager", "captured") * reps:
+            TorchProgram._capture = label == "captured"
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pub.execute_batch(compiled, batches[0], mesh=mesh)
+                ms[label].append((time.perf_counter() - t0) * 1e3
+                                 / len(batches[0]))
+            finally:
+                TorchProgram._capture = True
+    finally:
+        TorchProgram._force_plan = None
+    return {"counts": counts,
+            "ms_per_request": {k: statistics.median(v)
+                               for k, v in ms.items()},
+            "ms_per_request_all": ms,
+            "replay_ms": replay_ms(entry),
+            "capture_s": entry.capture_s,
+            "graph_pool_bytes": entry.pool_bytes,
+            "launches_per_replay": entry.launches}
 
 
 def mesh_phase(device, pub, compiled, sig, seed, reps=3):
@@ -1548,9 +1665,12 @@ def mesh_phase(device, pub, compiled, sig, seed, reps=3):
     captured single-device program (K1, K2, K4, K5 launched, no plain
     version), both timed in turns; ShardedKeySwitch at one shard at
     Sobel's level 0 against the fused key switch, and ShardedNTT at one
-    shard at [11, 16384] against K1, bit-identical and timed; the
-    one-rank collective overhead. With more than one card, Sobel on
-    {batch, limb} and {seq} meshes of one rank per card as well."""
+    shard at [11, 16384] against K1, bit-identical and timed eagerly and
+    as graph replays; the one-rank collective overhead. Then the
+    digit-parallel, seq and dp+seq programs forced on the same mesh
+    (mesh_plan_phase), each through its captured graph with its NCCL
+    collectives inside. With more than one card, Sobel on {batch, limb}
+    and {seq} meshes of one rank per card as well."""
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -1562,7 +1682,10 @@ def mesh_phase(device, pub, compiled, sig, seed, reps=3):
 
     rng = np.random.default_rng(seed)
     encs = [pub.encrypt({"image": rng.uniform(0, 1, sig.vec_size).tolist()},
-                        sig) for _ in range(4)]
+                        sig) for _ in range(8)]
+    encs, encs2 = encs[:4], encs[4:]
+    tp = pub._executor_for(compiled)._get_torch_program()
+    mesh = None
     dist.init_process_group(
         "nccl", init_method=f"tcp://localhost:{profiling._free_port()}",
         world_size=1, rank=0, device_id=device)
@@ -1573,7 +1696,6 @@ def mesh_phase(device, pub, compiled, sig, seed, reps=3):
         got = pub.execute_batch(compiled, encs, mesh=mesh)
         counts = read_counts()
         check_counts("sobel mesh", counts, fused=True)
-        tp = pub._executor_for(compiled)._get_torch_program()
         plans = [v[1] for v in tp._sharded_cache.values() if v[0] is mesh]
         if plans != ["batch"]:
             raise AssertionError(f"sobel mesh: plans {plans}")
@@ -1602,7 +1724,10 @@ def mesh_phase(device, pub, compiled, sig, seed, reps=3):
                                      f"the fused key switch")
         ks_ms = {"sharded_1": eager_ms(lambda: sks(poly), 20),
                  "fused": eager_ms(lambda: tp._key_switch(poly, 0,
-                                                          keys.relin), 20)}
+                                                          keys.relin), 20),
+                 "sharded_1_graph": graph_ms(lambda: sks(poly), 20),
+                 "fused_graph": graph_ms(
+                     lambda: tp._key_switch(poly, 0, keys.relin), 20)}
 
         # ShardedNTT, one shard, against K1.
         dev = DeviceLevelOps(primes, n, device)
@@ -1614,12 +1739,23 @@ def mesh_phase(device, pub, compiled, sig, seed, reps=3):
         if not torch.equal(sntt.intt(sntt.ntt(x3)), x3):
             raise AssertionError("ShardedNTT does not round-trip")
         ntt_ms = {"sharded_1": eager_ms(lambda: sntt.ntt(x3), 10),
-                  "k1": eager_ms(lambda: dev.ntt(poly), 50)}
+                  "k1": eager_ms(lambda: dev.ntt(poly), 50),
+                  "sharded_1_graph": graph_ms(lambda: sntt.ntt(x3), 10),
+                  "k1_graph": graph_ms(lambda: dev.ntt(poly), 50)}
+        wants = (want, pub.execute_batch(compiled, encs2))
+        forced = {plan: mesh_plan_phase(pub, compiled, mesh, (encs, encs2),
+                                        wants, plan)
+                  for plan in MESH_PLANS}
         overhead = profiling.measure_collective_overhead_us(device)
         world = torch.cuda.device_count()
         multi = (multi_card_mesh(pub, encs, want, world) if world > 1
                  else None)
     finally:
+        # The mesh programs' graphs hold NCCL work of this world's
+        # communicators: the communicators' destroy waits for them.
+        if mesh is not None:
+            pub.release_mesh(mesh)
+        torch.cuda.synchronize()
         dist.destroy_process_group()
     return {
         "ranks": 1, "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
@@ -1629,7 +1765,7 @@ def mesh_phase(device, pub, compiled, sig, seed, reps=3):
         "sharded_key_switch_ms": ks_ms, "ks_shape": [len(primes), n],
         "sharded_ntt_ms": ntt_ms, "ntt_shape": [len(primes), n],
         "collective_overhead_us": overhead, "cards": world,
-        "multi_card": multi}
+        "multi_card": multi, "forced_plans": forced}
 
 
 # The fuzz phase: random programs of tools/fuzz_cuda.py (N cycling through
@@ -1974,9 +2110,13 @@ def main() -> int:
     print("path sobel_batch " + json.dumps(batch), flush=True)
     paths["sobel_batch4"] = batch["batch4"]
     paths["sobel_pipelined8"] = batch["pipelined8"]
+    t0 = time.perf_counter()
     mesh = mesh_phase(device, pub, compiled, sig, 23)
     print("mesh " + json.dumps(mesh), flush=True)
+    print(f"mesh_phase_s {time.perf_counter() - t0:.2f}", flush=True)
     paths["sobel_mesh"] = mesh["batch4"]
+    for plan, res in mesh["forced_plans"].items():
+        paths["sobel_mesh_" + plan.replace("+", "_")] = res["counts"]
     profiling_phase(device, compiled_by_name, paths)
     paths["fuzz"] = fuzz_phase()
     t0 = time.perf_counter()

@@ -42,11 +42,15 @@ are fetched (`run_pipelined`). Raw subgraphs stay host-side.
 
 On a mesh (`run_batched(..., mesh=...)`, eva_tpu_torch.parallel), one
 process per device runs the program on its shard, as the JAX package's
-shard_map does: its batch slice (through the captured graph on the
-card), its key-switch digit shard with a modular all-reduce of the
-partial sums (limb / hlimb axes: _ks_dp), and its slice of the ring
-axis with one all-to-all per NTT (seq axis: _lops, _aperm). The
-digit-parallel and seq programs run eagerly."""
+shard_map does: its batch slice, its key-switch digit shard with a
+modular all-reduce of the partial sums (limb / hlimb axes: _ks_dp), and
+its slice of the ring axis with one all-to-all per NTT (seq axis:
+_lops, _aperm). On the card every plan runs as a captured CUDA graph,
+as the JAX package compiles each sharded program whole: the
+single-device program on the local batch through its own graph, the
+digit-parallel and seq programs through one graph per (mesh, plan,
+input key) with their NCCL collectives inside. On the CPU (gloo) they
+run eagerly."""
 
 from __future__ import annotations
 
@@ -412,6 +416,13 @@ class TorchProgram:
     # so that chip_smoke.py, tools/cuda_ab.py and the GPU tests can hold
     # captured runs against eager ones in one process.
     _capture = True
+    # Private switch, off by default: a plan ("dp", "seq" or "dp+seq")
+    # that a mesh of ONE rank takes instead of "batch", at one digit shard
+    # and one ring slice, its collectives over the mesh's one-rank groups
+    # (digits over "limb", the ring over "batch"; see _sharded). It lets
+    # chip_smoke.py and the tests run, capture and time the mesh programs
+    # on one card; the plan a user's mesh takes does not read it.
+    _force_plan = None
     # Digit-parallel / sequence-parallel contexts, installed while a
     # mesh program runs (_body_dp, _body_seq); class defaults so that
     # shims built with __new__ take the single-device path.
@@ -473,7 +484,7 @@ class TorchProgram:
         self._captured: Dict[Tuple, _Captured] = {}
         # Checked mesh plans by mesh and input shapes (_sharded), the
         # counterpart of JaxProgram._sharded_cache: (mesh, plan name,
-        # run).
+        # run, seq group).
         self._sharded_cache: Dict[Tuple, tuple] = {}
 
     def _const(self, key, arr: np.ndarray) -> torch.Tensor:
@@ -668,38 +679,49 @@ class TorchProgram:
 
     def _sharded(self, mesh, cipher, plain, consts):
         """The checked plan of this program on `mesh` for one input key
-        (the counterpart of JaxProgram._sharded_jit), cached by mesh and
-        input shapes: a function of the rank-local device inputs for
-        the digit-parallel and seq programs, or None for the
-        single-device program on the local batch (captured on the card).
-        Every rank calls it with the same shapes.
+        (the counterpart of JaxProgram._sharded_jit), cached by mesh,
+        the private _force_plan and input shapes: (mesh, plan name, run,
+        seq group). run is a function of the rank-local device inputs
+        for the digit-parallel and seq programs (see _body_dp,
+        _body_seq), None for the single-device program on the local
+        batch; the seq group is the process group of the ring axis, or
+        None. Every rank calls it with the same shapes.
 
         With a "limb" axis > 1 (and "hlimb"), the gadget digits of every
         key switch are sharded over the axis and accumulated with a
         modular all-reduce; dyadic ops run replicated across it. With a
-        "seq" axis the ring axis of every polynomial is sharded."""
+        "seq" axis the ring axis of every polynomial is sharded. On a
+        one-rank mesh, _force_plan selects these programs at one shard:
+        the digit all-reduce over the "limb" axis's group, the ring
+        all-to-alls over the "batch" axis's."""
         from ..parallel.seq_exec import seq_compatible
         from ..parallel.sharding import (axis_group, axis_index,
                                          axis_size, check_ici_axes,
                                          mesh_device, node_ids)
-        key = (id(mesh),) + self._capture_key(cipher, plain, consts)[:2]
+        key = ((id(mesh), self._force_plan)
+               + self._capture_key(cipher, plain, consts)[:2])
         hit = self._sharded_cache.get(key)
         if hit is not None and hit[0] is mesh:
-            return hit[2]
+            return hit
         if mesh_device(mesh) != self.device:
             raise ValueError(f"mesh device {mesh_device(mesh)} is not the "
                              f"program's device {self.device}")
         # Also guards hand-built meshes: collective-bearing axes must
         # not span nodes.
         check_ici_axes(node_ids(mesh), list(mesh.mesh_dim_names or ()))
+        forced = self._forced(mesh)
         n_dp = axis_size(mesh, "limb")
         n_seq = axis_size(mesh, "seq")
         n_hl = axis_size(mesh, "hlimb")  # node-spanning digit axis
         n_dig_shards = n_dp * n_hl
-        use_dp = (n_dig_shards > 1 and self.k == 1
+        use_dp = ((n_dig_shards > 1 or "dp" in forced) and self.k == 1
                   and (n_dp & (n_dp - 1)) == 0
                   and (n_hl & (n_hl - 1)) == 0
                   and bool(self._ks_sites()))
+        if "dp" in forced and not use_dp:
+            raise ValueError(
+                "forced plan dp: the program has no key switch to shard, "
+                "or is a sharded big-vector program")
         if n_hl > 1:
             if n_seq > 1:
                 raise ValueError(
@@ -709,7 +731,7 @@ class TorchProgram:
                     'mesh axis "hlimb" > 1 needs power-of-two sizes '
                     "and a program with key switches")
         seq = None
-        if n_seq > 1:
+        if n_seq > 1 or "seq" in forced:
             if self.k != 1:
                 raise ValueError(
                     "seq mesh axis: sharded big-vector programs "
@@ -723,8 +745,9 @@ class TorchProgram:
                     f"ring size {self.ctx.n} cannot shard over "
                     f"{n_seq} devices (seq must divide both 128 and "
                     f"N/128 = {self.ctx.n // 128})")
-            seq = {"group": axis_group(mesh, "seq"), "n_dev": n_seq,
-                   "perms": {}}
+            seq = {"group": axis_group(mesh, "seq" if n_seq > 1
+                                       else "batch"),
+                   "n_dev": n_seq, "perms": {}}
         run = None
         if use_dp:
             shard = axis_index(mesh, "hlimb") * n_dp + axis_index(mesh, "limb")
@@ -739,8 +762,37 @@ class TorchProgram:
         # "dp+hlimb", "seq", "dp+seq").
         plan = "+".join([p for p, on in (("dp", use_dp), ("hlimb", n_hl > 1),
                                          ("seq", seq is not None)) if on])
-        self._sharded_cache[key] = (mesh, plan or "batch", run)
-        return run
+        hit = self._sharded_cache[key] = (
+            mesh, plan or "batch", run, None if seq is None else seq["group"])
+        return hit
+
+    def _forced(self, mesh) -> set:
+        """The plan parts ({"dp"}, {"seq"} or both) that the private
+        switch _force_plan forces on `mesh`; empty when it is off. A
+        forced plan takes a make_device_mesh mesh of one rank."""
+        if self._force_plan is None:
+            return set()
+        parts = set(self._force_plan.split("+"))
+        if (not parts <= {"dp", "seq"} or mesh.size() != 1
+                or not {"batch", "limb"} <= set(mesh.mesh_dim_names or ())):
+            raise ValueError(
+                f"forced plan {self._force_plan!r}: choose dp, seq or "
+                f"dp+seq, on a one-rank make_device_mesh mesh")
+        return parts
+
+    def release_mesh(self, mesh) -> None:
+        """Drop what this program holds for `mesh`: its checked plans
+        and the captured graphs of its mesh programs. NCCL's
+        communicator destroy (torch.distributed.destroy_process_group)
+        waits until every CUDA graph that holds its collectives is
+        freed, so a caller releases each mesh before destroying the
+        process groups."""
+        for key in [k for k, e in self._captured.items() if e.mesh is mesh]:
+            del self._captured[key]
+        for key in [k for k, v in self._sharded_cache.items()
+                    if v[0] is mesh]:
+            del self._sharded_cache[key]
+        gc.collect()
 
     # -- device op helpers ---------------------------------------------------
 
@@ -1541,14 +1593,21 @@ class TorchProgram:
         end). A capture or replay that fails raises."""
         return _copy_out(self._replay_dev(cipher, plain, consts))
 
-    def _replay_dev(self, cipher, plain, consts):
+    def _replay_dev(self, cipher, plain, consts, sharded=None):
         """_replay up to the replay: returns the graph's static output
-        tensors, which the next replay of the same key rewrites."""
+        tensors, which the next replay of the same key rewrites. With
+        `sharded` (a _sharded entry whose run is not None), the mesh
+        program of that plan: its own graph, keyed by the mesh and the
+        plan name as well."""
         key = self._capture_key(cipher, plain, consts)
+        mesh = None
+        if sharded is not None:
+            mesh, plan = sharded[:2]
+            key += (id(mesh), plan)
         entry = self._captured.get(key)
-        if entry is None:
+        if entry is None or entry.mesh is not mesh:
             entry = self._captured[key] = self._capture_graph(
-                cipher, plain, consts)
+                cipher, plain, consts, sharded)
         else:
             entry.fill(cipher, plain)
         entry.replay()
@@ -1570,21 +1629,40 @@ class TorchProgram:
                  **{k: cut(self._upload_plain(pt))
                     for k, pt in consts.items()}})
 
-    def _capture_graph(self, cipher, plain, consts) -> "_Captured":
-        """Capture `_traced` for one input key: static input tensors,
-        filled with this request's inputs; one eager warm-up on a side
-        stream, which builds every lazy table, constant and kernel
-        library and runs every first-use nvcc build and occupancy query,
-        so that the capture uploads nothing; then the capture."""
+    def _capture_graph(self, cipher, plain, consts,
+                       sharded=None) -> "_Captured":
+        """Capture `_traced` for one input key, or with `sharded` (see
+        _replay_dev) the mesh program of its plan: static input tensors
+        (with a seq group, of this rank's ring slice), filled with this
+        request's inputs; one eager warm-up on a side stream, which
+        builds every lazy table, constant, kernel library and key
+        layout, runs every first-use nvcc build and occupancy query, and
+        makes every NCCL communicator the program's collectives use, so
+        that the capture uploads nothing and initializes nothing; then
+        the capture. A mesh program's collectives are recorded in the
+        graph. In a process with NCCL process groups, their watchdog
+        thread queries CUDA events while this thread captures, so a
+        capture refuses unsafe calls of this thread only
+        ("thread_local")."""
+        from ..parallel.seq_exec import seq_slice
+        body, mesh, seq = self._traced, None, None
+        if sharded is not None:
+            mesh, _, body, seq = sharded
+
+        def cut(a):
+            return a if seq is None else seq_slice(a, seq)
+
         device = self.device
         with torch.cuda.device(device):
             entry = _Captured(
-                {k: [torch.empty(a.shape, dtype=torch.int32, device=device)
+                {k: [torch.empty(cut(a).shape, dtype=torch.int32,
+                                 device=device)
                      for a in planes] for k, planes in cipher.items()},
-                {k: torch.empty(a.shape, dtype=torch.int32, device=device)
+                {k: torch.empty(cut(a).shape, dtype=torch.int32,
+                                device=device)
                  for k, a in plain.items()},
-                {k: (pt, self._upload_plain(pt))
-                 for k, pt in consts.items()})
+                {k: (pt, cut(self._upload_plain(pt)))
+                 for k, pt in consts.items()}, seq=seq, mesh=mesh)
             entry.fill(cipher, plain)
             plain_in = {**entry.plain,
                         **{k: dev for k, (_, dev) in entry.consts.items()}}
@@ -1592,7 +1670,7 @@ class TorchProgram:
             side = torch.cuda.Stream(device)
             side.wait_stream(stream)
             with torch.cuda.stream(side):
-                self._traced(entry.cipher, plain_in)
+                body(entry.cipher, plain_in)
             stream.wait_stream(side)
             # What torch.cuda.graph does on entry, done first so that the
             # reserved bytes grow by the graph's private pool alone.
@@ -1603,8 +1681,9 @@ class TorchProgram:
             reserved = torch.cuda.memory_reserved(device)
             t0 = time.perf_counter()
             entry.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(entry.graph):
-                entry.out = self._traced(entry.cipher, plain_in)
+            with torch.cuda.graph(entry.graph,
+                                  capture_error_mode="thread_local"):
+                entry.out = body(entry.cipher, plain_in)
             entry.capture_s = time.perf_counter() - t0
             entry.pool_bytes = torch.cuda.memory_reserved(device) - reserved
             # A capture records launches and runs none: what it counted
@@ -1683,16 +1762,17 @@ class TorchProgram:
     def _run_mesh(self, host_values_list, mesh) -> List[Dict[str, object]]:
         """run_batched on a mesh. This rank takes its batch slice (the
         batch axes flattened, "host" major), its digit shard (limb,
-        hlimb) and its ring slice (seq); runs the program (_sharded:
-        the single-device program on the local batch, through its
-        captured graph on the card, or the digit-parallel / seq program
-        eagerly); then all-gathers the outputs over "seq" and over the
-        batch axes. Plaintexts that are the same object in every element
-        of the whole list serve every rank unstacked, as in JAX."""
+        hlimb) and its ring slice (seq); runs the program of its plan
+        (_sharded: the single-device program on the local batch, or the
+        digit-parallel / seq program), on the card through the plan's
+        captured graph (_replay_dev), on the CPU eagerly; then
+        all-gathers the outputs over the ring axis's group and over the
+        batch axes, eagerly. Plaintexts that are the same object in
+        every element of the whole list serve every rank unstacked, as
+        in JAX."""
         from torch.distributed.device_mesh import DeviceMesh
 
-        from ..parallel.sharding import (axis_group, axis_size, batch_axes,
-                                         batch_shard)
+        from ..parallel.sharding import axis_group, batch_axes, batch_shard
         if not isinstance(mesh, DeviceMesh):
             raise TypeError(
                 "run_batched: mesh must be a torch.distributed DeviceMesh "
@@ -1708,10 +1788,11 @@ class TorchProgram:
                   and all(hv[idx] is v for hv in padded)}
         cipher, plain, consts = self._split(
             padded[shard * loc:(shard + 1) * loc], True, shared)
-        run = self._sharded(mesh, cipher, plain, consts)
-        seq = axis_group(mesh, "seq") if axis_size(mesh, "seq") > 1 else None
-        if run is None and self._captures():
-            out = self._replay_dev(cipher, plain, consts)
+        sharded = self._sharded(mesh, cipher, plain, consts)
+        _, _, run, seq = sharded
+        if self._captures():
+            out = self._replay_dev(cipher, plain, consts,
+                                   None if run is None else sharded)
         else:
             inputs = self._dev_inputs(cipher, plain, consts, seq)
             out = (run or self._traced)(*inputs)
@@ -1831,14 +1912,20 @@ class _Captured:
     output tensors each replay rewrites; launches: the kernel launches of
     one replay by counter (see _counters), counted while capturing;
     capture_s and pool_bytes: the capture's seconds and the device
-    memory its private pool reserved. The level tables, key layouts and
-    program tables the graph reads are held by their caches, which never
-    drop an entry."""
+    memory its private pool reserved; seq: the ring axis's process
+    group of a seq program, whose static inputs hold this rank's slice
+    of the ring axis (fill cuts it); mesh: the mesh of a mesh program
+    (the capture key holds its id), else None. The level tables, key
+    layouts, program tables, and a mesh program's digit tables, keys and
+    transforms the graph reads are held by their caches (and
+    TorchProgram._sharded_cache), which never drop an entry."""
 
-    def __init__(self, cipher, plain, consts):
+    def __init__(self, cipher, plain, consts, seq=None, mesh=None):
         self.cipher = cipher
         self.plain = plain
         self.consts = consts
+        self.seq = seq
+        self.mesh = mesh
         self._static = [t for planes in cipher.values() for t in planes]
         self._static += list(plain.values())
         self._stages: List[tuple] = []
@@ -1863,6 +1950,9 @@ class _Captured:
                              "captured ones")
         arrays = [a for k in self.cipher for a in cipher[k]]
         arrays += [plain[k] for k in self.plain]
+        if self.seq is not None:
+            from ..parallel.seq_exec import seq_slice
+            arrays = [seq_slice(a, self.seq) for a in arrays]
         for dst, arr in zip(self._static, arrays):
             if tuple(arr.shape) != tuple(dst.shape):
                 raise ValueError(

@@ -23,7 +23,13 @@ keeps JAX's form: one all_to_all_single and local modular adds.
 
 The post-accumulation tail (extended-basis iNTT, division by P, final
 NTT) runs replicated on every rank. The NTTs are the port's
-DeviceLevelOps transforms: the CUDA kernels K1/K2 on the card."""
+DeviceLevelOps transforms: the CUDA kernels K1/K2 on the card.
+
+In a digit-parallel program on the card these collectives are recorded
+in the program's CUDA graph (backend/executor_torch: _capture_graph):
+they read nothing on the host, and their receive buffers, made per
+call, come from the graph's pool. A group's NCCL communicator must
+exist before the capture; the capture's eager warm-up makes it."""
 
 from __future__ import annotations
 

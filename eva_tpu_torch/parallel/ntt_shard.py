@@ -30,7 +30,13 @@ them): each stage's modular adds, subtracts and Shoup multiplies go
 through the level ops of the primes (DeviceLevelOps: the CUDA kernel E1
 on the card, its plain version on the CPU), over every block at once
 (the JAX module loops over the blocks). Planes are int32 tensors of
-uint32 residues (backend/modmath.py)."""
+uint32 residues (backend/modmath.py).
+
+In a seq program on the card both transforms, all-to-all included, are
+recorded in the program's CUDA graph (backend/executor_torch:
+_capture_graph): the tables are uploaded when the transform is made
+(get_sharded_ntt, first called in the capture's eager warm-up), and a
+transform reads nothing on the host."""
 
 from __future__ import annotations
 

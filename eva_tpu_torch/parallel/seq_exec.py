@@ -26,7 +26,9 @@ unchanged; only two things need communication:
     (seq_perm_galois: one shard exchange and a local gather).
 
 This is the latency axis: batch sharding keeps one execution on one
-device; the seq axis splits the work of a single execution."""
+device; the seq axis splits the work of a single execution. On the card
+a seq program runs as one captured CUDA graph with these exchanges
+inside (backend/executor_torch: _capture_graph)."""
 
 from __future__ import annotations
 
@@ -104,7 +106,11 @@ def seq_perm_galois(ctx, g: int, group, fallback_fn, device=None):
     its lanes locally. Falls back to the generic gather lift if the
     shard-exchange structure doesn't factor (it always does for Galois
     elements under the seq_compatible conditions). Bit-identical either
-    way."""
+    way. The exchange's split sizes and the lane index are made here,
+    with numpy, so the returned applicator reads nothing on the host:
+    the executor makes it once per seq context (TorchProgram._aperm),
+    in the eager warm-up before a capture, and the capture records the
+    exchange."""
     n_dev = dist.get_world_size(group)
     tabs = _seq_perm_tables(ctx, g, n_dev)
     if tabs is None:  # pragma: no cover - defensive

@@ -157,6 +157,16 @@ class EVAPublic:
         results = self._executor_for(program).run_batch(inputs_list, mesh=mesh)
         return [EVAValuation(self.params, r) for r in results]
 
+    def release_mesh(self, mesh) -> None:
+        """Free what this context's programs hold for `mesh`: their
+        checked plans and, on the card, the captured graphs of its mesh
+        programs. Call it before torch.distributed.destroy_process_group:
+        NCCL's communicator destroy waits until every CUDA graph that
+        holds its collectives is freed."""
+        for ex in self._executors.values():
+            if ex._torch_program is not None:
+                ex._torch_program.release_mesh(mesh)
+
     def execute_pipelined(self, program, inputs_iter, depth: int = 2):
         """Stream executions of one compiled program over an iterable of
         input valuations (torch backend), yielding one output valuation

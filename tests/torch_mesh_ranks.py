@@ -1,5 +1,6 @@
 """Rank harness of the port's multi-process CPU tests
-(tests/test_torch_parallel.py, tests/test_torch_mesh.py).
+(tests/test_torch_parallel.py, tests/test_torch_mesh.py,
+tests/test_torch_mesh_plans.py).
 
 `run_world(world, cases)` starts `world` processes of this file, each one
 gloo rank of a torch.distributed world on one CPU thread, rendezvousing
@@ -19,6 +20,7 @@ carry_values are the two steps in one process)."""
 
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 import subprocess
@@ -29,9 +31,25 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+def _sobel(x, w=8):
+    """Sobel's two 3x3 stencils over a w-wide image, squared and summed:
+    hoisted rotations, rotation sums times the filter's constants, a
+    relinearization and a rescale."""
+    filt = [[-1, 0, 1], [-2, 0, 2], [-1, 0, 1]]
+    ix = iy = None
+    for i in range(3):
+        for j in range(3):
+            rot = x << (i * w + j)
+            h, v = rot * filt[i][j], rot * filt[j][i]
+            ix, iy = (h, v) if ix is None else (ix + h, iy + v)
+    return ix * ix + iy * iy
+
+
 # name: (program of x and, with two inputs, a plaintext w; vec_size,
 # input scale, plain input w)
 PROGRAMS = {
+    # Sobel 8x8 (N = 8192, prime bits [60, 20, 60, 60]).
+    "sobel": (_sobel, 64, 30, False),
     # tests/test_parallel.py's dp / seq / hlimb program: relinearization
     # and a hoisted rotation source.
     "dp": (lambda x: 3 * x ** 2 + (x << 1) + (x << 3) - 2, 16, 30, False),
@@ -137,6 +155,12 @@ def port_values(vp):
 def planes(result):
     """Port valuation -> {name: [uint64 planes]}."""
     return {k: [np.asarray(p) for p in v.polys] for k, v in result.items()}
+
+
+def ciphertexts(result):
+    """Port valuation -> {name: ([uint64 planes], level, scale)}."""
+    return {k: ([np.asarray(p) for p in v.polys], v.level, v.scale)
+            for k, v in result.items()}
 
 
 # -- cases (run on every rank) -----------------------------------------------
@@ -253,6 +277,20 @@ def case_pipeline_step(case):
 _PROGRAM_CACHE: dict = {}
 
 
+def _served(case):
+    """(compiled program, EVAPublic on the CPU) of case["program"] with
+    the carried keys case["keys"] (sent with a program's first case),
+    made once per rank."""
+    from eva_tpu_torch.runtime import EVAPublic
+    name = case["program"]
+    if name not in _PROGRAM_CACHE:
+        compiled, params, _ = compile_port(name)
+        ctx, keys = port_keys(case["keys"])
+        pub = EVAPublic(ctx, keys, params, backend="torch", device="cpu")
+        _PROGRAM_CACHE[name] = (compiled, pub)
+    return _PROGRAM_CACHE[name]
+
+
 def case_execute(case):
     """EVAPublic.execute_batch of program case["program"] on the CPU
     mesh make_device_mesh(**case["mesh"]) over the carried valuations
@@ -261,14 +299,7 @@ def case_execute(case):
     batch, or the error; "plans": the mesh plans that ran (see
     TorchProgram._sharded)}."""
     from eva_tpu_torch.parallel import make_device_mesh
-    from eva_tpu_torch.runtime import EVAPublic
-    name = case["program"]
-    if name not in _PROGRAM_CACHE:
-        compiled, params, _ = compile_port(name)
-        ctx, keys = port_keys(case["keys"])
-        pub = EVAPublic(ctx, keys, params, backend="torch", device="cpu")
-        _PROGRAM_CACHE[name] = (compiled, pub)
-    compiled, pub = _PROGRAM_CACHE[name]
+    compiled, pub = _served(case)
     vals = [port_values(v) for v in case["values"]]
     mesh = make_device_mesh(device_type="cpu", **case["mesh"])
     out = []
@@ -286,10 +317,167 @@ def case_execute(case):
     return {"outputs": out, "plans": plans}
 
 
+@contextlib.contextmanager
+def _forcing(plan):
+    """TorchProgram._force_plan set to `plan` inside the block; None
+    leaves the switch as it is."""
+    from eva_tpu_torch.backend.executor_torch import TorchProgram
+    if plan is None:
+        yield
+        return
+    TorchProgram._force_plan = plan
+    try:
+        yield
+    finally:
+        TorchProgram._force_plan = None
+
+
+def case_forced(case):
+    """execute_batch of program case["program"] over the carried
+    valuations case["values"] on a one-rank CPU mesh, with
+    TorchProgram._force_plan at each of case["plans"] (None: as it is).
+    Returns {plan: {"outputs": ciphertexts() of each element, or the
+    error; "ran": the plan name _sharded chose}}."""
+    from eva_tpu_torch.parallel import make_device_mesh
+    compiled, pub = _served(case)
+    vals = [port_values(v) for v in case["values"]]
+    mesh = make_device_mesh(device_type="cpu")
+    tp = pub._executor_for(compiled)._get_torch_program()
+    out = {}
+    for plan in case["plans"]:
+        with _forcing(plan):
+            try:
+                res = [ciphertexts(r)
+                       for r in pub.execute_batch(compiled, vals, mesh=mesh)]
+            except ValueError as exc:
+                res = ("ValueError", str(exc))
+        out[plan] = {"outputs": res,
+                     "ran": [v[1] for k, v in tp._sharded_cache.items()
+                             if v[0] is mesh and k[1] == plan]}
+    return out
+
+
+def case_capture_keys(case):
+    """The mesh programs' capture cache on the CPU: with
+    TorchProgram._captures on and _capture_graph replaced by an eager
+    stand-in (no CUDA), program case["program"] runs each step (mesh
+    0 or 1 of two one-rank meshes, forced plan or None, batch size) of
+    case["steps"], then releases mesh 0 (EVAPublic.release_mesh).
+    Returns {"captured": the steps that captured, in order; "equal":
+    every output equal to the batch without a mesh; "keys": the number
+    of entries in _captured before and after the release; "plans": the
+    number of checked plans of each mesh after it}."""
+    from eva_tpu_torch.backend.executor_torch import TorchProgram
+    from eva_tpu_torch.parallel import make_device_mesh
+    compiled, pub = _served(case)
+    vals = [port_values(v) for v in case["values"]]
+    tp = pub._executor_for(compiled)._get_torch_program()
+    want = [planes(r) for r in pub.execute_batch(compiled, vals)]
+    captured, now = [], []
+
+    class StandIn:
+        """What _capture_graph returns, run eagerly: fill stages the
+        inputs as _dev_inputs cuts them, replay runs the body."""
+
+        def __init__(self, cipher, plain, consts, sharded):
+            self.mesh = None if sharded is None else sharded[0]
+            self.body = tp._traced if sharded is None else sharded[2]
+            self.seq = None if sharded is None else sharded[3]
+            self.consts = consts
+            self.fill(cipher, plain)
+
+        def fill(self, cipher, plain):
+            self.inputs = tp._dev_inputs(cipher, plain, self.consts,
+                                         self.seq)
+
+        def replay(self):
+            self.out = self.body(*self.inputs)
+
+    def capture(self, cipher, plain, consts, sharded=None):
+        captured.append(now[-1])
+        return StandIn(cipher, plain, consts, sharded)
+
+    saved = TorchProgram._captures, TorchProgram._capture_graph
+    TorchProgram._captures = lambda self: True
+    TorchProgram._capture_graph = capture
+    equal = True
+    try:
+        meshes = [make_device_mesh(device_type="cpu") for _ in range(2)]
+        for step in case["steps"]:
+            m, plan, batch = step
+            now.append(step)
+            with _forcing(plan):
+                got = pub.execute_batch(compiled, vals[:batch],
+                                        mesh=meshes[m])
+            equal &= all(np.array_equal(a, b)
+                         for w, g in zip(want, got)
+                         for k in w for a, b in zip(w[k], planes(g)[k]))
+        keys = [len(tp._captured)]
+        pub.release_mesh(meshes[0])
+        keys.append(len(tp._captured))
+    finally:
+        TorchProgram._captures, TorchProgram._capture_graph = saved
+    return {"captured": captured, "equal": bool(equal), "keys": keys,
+            "plans": [sum(v[0] is m for v in tp._sharded_cache.values())
+                      for m in meshes]}
+
+
+# Tensor methods that read a value on the host, and the calls that make
+# a tensor of host data (tests/test_torch_capture.py).
+HOST_READS = ("item", "cpu", "tolist", "numpy", "__bool__", "__int__",
+              "__float__", "__index__")
+UPLOADS = ("from_numpy", "tensor", "as_tensor")
+
+
+def case_host_reads(case):
+    """What a capture of each forced plan's program relies on: once warm,
+    a run of the plan's body (_sharded's run on _dev_inputs) makes no
+    tensor of host data (every table, constant, key layout, transform
+    and permutation already made) and reads no tensor on the host.
+    Returns {plan: None, or the error the refused call raised}."""
+    import torch
+
+    from eva_tpu_torch.parallel import make_device_mesh
+    compiled, pub = _served(case)
+    vals = [port_values(v) for v in case["values"]]
+    ex = pub._executor_for(compiled)
+    tp = ex._get_torch_program()
+    mesh = make_device_mesh(device_type="cpu")
+    cipher, plain, consts = tp._split(
+        [ex._host_phase(v)[0] for v in vals], True)
+
+    def refuse(name):
+        def call(*args, **kwargs):
+            raise AssertionError(f"{name} during a warm run")
+        return call
+
+    patches = ([(torch.Tensor, n) for n in HOST_READS]
+               + [(torch, n) for n in UPLOADS])
+    out = {}
+    for plan in case["plans"]:
+        with _forcing(plan):
+            _, _, run, group = tp._sharded(mesh, cipher, plain, consts)
+        inputs = tp._dev_inputs(cipher, plain, consts, group)
+        run(*inputs)
+        saved = [(obj, n, getattr(obj, n)) for obj, n in patches]
+        try:
+            for obj, n in patches:
+                setattr(obj, n, refuse(n))
+            run(*inputs)
+            out[plan] = None
+        except AssertionError as exc:
+            out[plan] = str(exc)
+        finally:
+            for obj, n, f in saved:
+                setattr(obj, n, f)
+    return out
+
+
 CASES = {"mesh": case_mesh, "collectives": case_collectives,
          "sharded_ntt": case_sharded_ntt, "seq_perm": case_seq_perm,
          "sks": case_sks, "pipeline_step": case_pipeline_step,
-         "execute": case_execute}
+         "execute": case_execute, "forced": case_forced,
+         "capture_keys": case_capture_keys, "host_reads": case_host_reads}
 
 
 def run_world(world: int, cases, timeout: float = 180.0):
