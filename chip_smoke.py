@@ -113,11 +113,33 @@ Phases (any failure exits non-zero and prints no result line):
      (residues, level, scale), its decryption within MSE 0.01; one
      `fuzz {...}` line (counts by N, route, alpha and rescaler, failures,
      seconds, peak reserved memory); its counts appear as
-     launches_by_path["fuzz"]. Then the entry-point phase
-     (entry_phase): examples/image_processing_torch.py and
-     examples/regression_torch.py as subprocesses on the card (exit 0;
-     each printed MSE of the image example below 0.01, the regression
-     example asserts its own), and bench_torch.run at full size with
+     launches_by_path["fuzz"]. Then the protocol phase
+     (protocol_phase): the 4-role protocol of examples/serialization.py
+     for Sobel 90x90 (seed 11) through files in a temporary directory,
+     saved and loaded by eva_tpu_torch's own wire codec (no protobuf):
+     here, compile, save the program, parameters and signature, load the
+     parameters, generate_keys on the card, save both contexts, encrypt
+     and save the inputs; then the server as `chip_smoke.py --serve DIR`,
+     a process of its own (exit 0 required): it loads the program,
+     signature, public context (on cuda:0) and inputs, executes twice
+     (capture, then a replay with the counts reset just before it and
+     read just after: K1, K2, K4, K5, E1 in its three forms, E2, E3
+     launched, no plain version), saves the output, times five more
+     warm executes, and fails if google.protobuf was imported; back
+     here, load the secret context and the output and decrypt: the
+     output bit-identical, polynomial by polynomial, to an execute here
+     of the same ciphertexts with the original public context, with
+     the same level and scale, the MSE below MSE_LIMIT["sobel"], and no
+     google.protobuf imported; one `protocol {...}` line (MB of each
+     file, save and load seconds per object, the server's CUDA start-up,
+     its read and decode of the public context's file alone, first and
+     warm execute ms, the capture's seconds, launches per execute); the
+     server's counts appear as launches_by_path["protocol"]. Then the
+     entry-point phase (entry_phase): examples/image_processing_torch.py,
+     examples/regression_torch.py and examples/serialization_torch.py
+     as subprocesses on the card (exit 0; each printed MSE of the image
+     and serialization examples below 0.01, the regression example
+     asserts its own), and bench_torch.run at full size with
      one pass, its counts reset just before it and read just after: the
      line holds every key of bench.py's, every throughput and time is
      positive, every sol_pct and compute_pct at most 105, K1, K2, K4,
@@ -142,8 +164,11 @@ Phases (any failure exits non-zero and prints no result line):
      several-planes and MAC forms as mod_ew, mod_ew_multi, mod_ew_mac),
      E2, E3 and E4 (its launches those of the bench run)
      (keygen's launches under `launches_keygen`, the mesh phase's under
-     launches_by_path "sobel_mesh" and "sobel_mesh_<plan>"), then the
-     device line last.
+     launches_by_path "sobel_mesh" and "sobel_mesh_<plan>", the protocol
+     server's under "protocol"), then the device line last.
+
+`python3 chip_smoke.py --serve DIR` is the protocol phase's server role
+alone, on the files in DIR (PROTOCOL_FILES); main() starts it.
 
 Imports nothing of JAX and nothing of the JAX package eva_tpu."""
 
@@ -1833,8 +1858,208 @@ def fuzz_phase():
     return counts
 
 
+# The 4-role protocol of examples/serialization.py for Sobel 90x90:
+# the files each role hands on, and run_program's seed for Sobel.
+PROTOCOL_SEED = 11
+PROTOCOL_FILES = {"program": "sobel.eva", "params": "sobel.evaparams",
+                  "signature": "sobel.evasignature",
+                  "public": "sobel.evapublic", "secret": "sobel.evasecret",
+                  "inputs": "sobel_inputs.evavals",
+                  "outputs": "sobel_outputs.evavals"}
+
+
+def _timed(fn, *args, **kw):
+    """(fn(*args, **kw), its wall seconds)."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    return out, time.perf_counter() - t0
+
+
+def protocol_client(tmp: str, device=None):
+    """The compile, key-generation and encrypt roles of the protocol, in
+    this process: compile Sobel 90x90, save the program, parameters and
+    signature; load the parameters, generate keys on `device` (None: the
+    CUDA device), save the public and secret contexts; encrypt seeded
+    inputs and save them. Returns (the in-memory objects, save and load
+    seconds by object)."""
+    from eva_tpu_torch import load, save
+    from eva_tpu_torch.ckks import CKKSCompiler
+    from eva_tpu_torch.runtime import generate_keys
+
+    path = lambda what: os.path.join(tmp, PROTOCOL_FILES[what])
+    save_s, load_s = {}, {}
+    prog = build_sobel()
+    compiled, params, sig = CKKSCompiler(
+        {"warn_vec_size": "false"}).compile(prog)
+    for what, obj in (("program", compiled), ("params", params),
+                      ("signature", sig)):
+        _, save_s[what] = _timed(save, obj, path(what))
+    params, load_s["params"] = _timed(load, path("params"))
+    pub, sec = generate_keys(params, device=device)
+    for what, obj in (("public", pub), ("secret", sec)):
+        _, save_s[what] = _timed(save, obj, path(what))
+    rng = np.random.default_rng(PROTOCOL_SEED)
+    inputs = {"image": rng.uniform(0, 1, prog.vec_size).tolist()}
+    enc = pub.encrypt(inputs, sig)
+    _, save_s["inputs"] = _timed(save, enc, path("inputs"))
+    objects = {"prog": prog, "compiled": compiled, "sig": sig, "pub": pub,
+               "inputs": inputs, "enc": enc}
+    return objects, save_s, load_s
+
+
+def protocol_server(tmp: str, device="cuda:0", reps: int = 5):
+    """The server role: load the program, signature, public context (on
+    `device`; the process's CUDA start-up timed first, apart) and
+    encrypted inputs; execute twice (the first call captures the
+    program's graph, the second replays it), the counts reset just
+    before the second and read just after it; save the output
+    valuation; then `reps` more warm executes, timed. Returns its times
+    (with the codec's read and decode of the public context's file
+    apart, and the graph capture's seconds inside the first execute),
+    counts and the device the public context loaded on."""
+    import torch
+    from eva_tpu_torch import load, save
+    from eva_tpu_torch.serialization import wire
+
+    def cuda_start():
+        torch.empty(1, device=device)
+        torch.cuda.synchronize(device)
+
+    path = lambda what: os.path.join(tmp, PROTOCOL_FILES[what])
+    load_s = {}
+    cuda_start_s = (_timed(cuda_start)[1]
+                    if torch.device(device).type == "cuda" else None)
+    compiled, load_s["program"] = _timed(load, path("program"))
+    _, load_s["signature"] = _timed(load, path("signature"))
+    pub, load_s["public"] = _timed(load, path("public"), device=device)
+    enc, load_s["inputs"] = _timed(load, path("inputs"))
+
+    def execute():
+        out = pub.execute(compiled, enc)
+        if pub.device.type == "cuda":
+            torch.cuda.synchronize()
+        return out
+
+    _, first_s = _timed(execute)
+    reset_counts()
+    out, warm_s = _timed(execute)
+    counts = read_counts()
+    _, save_s = _timed(save, out, path("outputs"))
+    warm_ms = [_timed(execute)[1] * 1e3 for _ in range(reps)]
+
+    def decode_public():
+        with open(path("public"), "rb") as f:
+            env = wire.decode("KnownType", f.read())
+        return wire.decode(wire.any_type_name(env.contents),
+                           env.contents.value)
+
+    tp = pub._executor_for(compiled)._get_torch_program()
+    return {"device": str(pub.device), "cuda_start_s": cuda_start_s,
+            "load_s": load_s, "save_s": {"outputs": save_s},
+            "public_read_decode_s": _timed(decode_public)[1],
+            "capture_s": [e.capture_s for e in tp._captured.values()],
+            "execute_ms": {"first": first_s * 1e3, "warm": warm_s * 1e3,
+                           "warm_median": statistics.median(warm_ms),
+                           "warm_all": warm_ms},
+            "counts": counts}
+
+
+def serve_main(tmp: str) -> int:
+    """`chip_smoke.py --serve DIR`: the server role on the card, in a
+    process of its own; fails unless the public context loaded on the
+    card, the warm execute launched every kernel of the path with no
+    plain version (check_counts), and protobuf was never imported.
+    Prints one `serve {...}` line."""
+    res = protocol_server(tmp)
+    if not res["device"].startswith("cuda"):
+        raise AssertionError(f"serve: public context on {res['device']}")
+    check_counts("protocol server", res["counts"], fused=True)
+    if "google.protobuf" in sys.modules:
+        raise AssertionError("serve: google.protobuf was imported")
+    print("serve " + json.dumps(res), flush=True)
+    return 0
+
+
+def protocol_check(tmp: str, objects: dict, server: dict, save_s: dict,
+                   load_s: dict) -> dict:
+    """The client again: load the secret context and the server's
+    output, decrypt. Fails unless the output's residues are
+    bit-identical (per polynomial) to an execute here of the same
+    ciphertexts with the original public context, with the same level
+    and scale, and the MSE is below MSE_LIMIT["sobel"]. Returns the
+    protocol line."""
+    from eva_tpu_torch import evaluate, load
+    from eva_tpu_torch.metric import valuation_mse
+
+    path = lambda what: os.path.join(tmp, PROTOCOL_FILES[what])
+    sec, load_s["secret"] = _timed(load, path("secret"))
+    out, load_s["outputs"] = _timed(load, path("outputs"))
+    want = objects["pub"].execute(objects["compiled"], objects["enc"])
+    if set(out) != set(want):
+        raise AssertionError(f"protocol: outputs {sorted(out)}, want "
+                             f"{sorted(want)}")
+    for k in want:
+        if len(out[k].polys) != len(want[k].polys) or (
+                out[k].level, out[k].scale) != (want[k].level,
+                                                 want[k].scale):
+            raise AssertionError(
+                f"protocol: {k} has {len(out[k].polys)} polynomials at "
+                f"level {out[k].level}, scale {out[k].scale}; want "
+                f"{len(want[k].polys)} at {want[k].level}, "
+                f"{want[k].scale}")
+    check_equal("protocol: the server's output against this process's "
+                "execute", want, out)
+    dec = sec.decrypt(out, objects["sig"])
+    mse = valuation_mse(dec, evaluate(objects["prog"], objects["inputs"]))
+    if not mse < MSE_LIMIT["sobel"]:
+        raise AssertionError(f"protocol: MSE {mse} >= {MSE_LIMIT['sobel']}")
+    return {
+        "program": "sobel", "N": objects["pub"].params.poly_modulus_degree,
+        "mb": {what: os.path.getsize(path(what)) / 1e6
+               for what in PROTOCOL_FILES},
+        "save_s": {**save_s, **server["save_s"]},
+        "load_s": {**load_s, **server["load_s"]},
+        "server_device": server["device"],
+        "server_cuda_start_s": server["cuda_start_s"],
+        "server_public_read_decode_s": server["public_read_decode_s"],
+        "server_capture_s": server["capture_s"],
+        "server_execute_ms": server["execute_ms"],
+        "launches_per_execute": path_launches(server["counts"]),
+        "mse": mse, "bit_identical": True}
+
+
+def protocol_phase():
+    """The 4-role protocol on the card through files in a temporary
+    directory: protocol_client here, the server as `chip_smoke.py
+    --serve DIR` (a process of its own; exit 0 required), then
+    protocol_check here; fails if this process imported google.protobuf.
+    Prints the server's lines and one `protocol {...}` line; returns
+    (the line, the server's counts)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        objects, save_s, load_s = protocol_client(tmp)
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--serve", tmp],
+            capture_output=True, text=True, timeout=600)
+        for line in proc.stdout.splitlines():
+            print(f"server: {line}", flush=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"--serve exited {proc.returncode}:\n"
+                                 f"{proc.stderr[-4000:]}")
+        (line,) = [l for l in proc.stdout.splitlines()
+                   if l.startswith("serve ")]
+        server = json.loads(line[len("serve "):])
+        result = protocol_check(tmp, objects, server, save_s, load_s)
+    if "google.protobuf" in sys.modules:
+        raise AssertionError("protocol: google.protobuf was imported")
+    print("protocol " + json.dumps(result), flush=True)
+    return result, server["counts"]
+
+
 EXAMPLES = ("examples/image_processing_torch.py",
-            "examples/regression_torch.py")
+            "examples/regression_torch.py",
+            "examples/serialization_torch.py")
 # The reference's tolerance for an HE result against the plaintext one
 # (examples/regression.py's assert, tests/test_he.py).
 EXAMPLE_MSE_LIMIT = 0.01
@@ -1842,9 +2067,10 @@ SOL_PCT_LIMIT = 105
 
 
 def entry_phase():
-    """The user's entry points on the card: the two card examples as
+    """The user's entry points on the card: the three card examples as
     subprocesses (exit 0; every MSE the image example prints below
-    EXAMPLE_MSE_LIMIT, and Sobel's and Harris's both printed), then
+    EXAMPLE_MSE_LIMIT, and Sobel's and Harris's both printed; the
+    serialization example's one MSE below it), then
     bench_torch.run at full size with one pass, the counts reset just
     before it and read just after. Fails unless the line holds every key
     of bench.py's (bench_torch.LINE_EXTRAS), every sampled metric,
@@ -1874,6 +2100,12 @@ def entry_phase():
                 set(mse) != {"sobel", "harris"}
                 or not max(mse.values()) < EXAMPLE_MSE_LIMIT):
             raise AssertionError(f"{script}: MSE {mse}")
+        if "serialization" in script:
+            mse = [float(v) for v in
+                   re.findall(r"^MSE (\S+)$", proc.stdout, re.M)]
+            examples[script]["mse"] = mse
+            if len(mse) != 1 or not mse[0] < EXAMPLE_MSE_LIMIT:
+                raise AssertionError(f"{script}: MSE {mse}")
     print("examples " + json.dumps(examples), flush=True)
 
     t0 = time.perf_counter()
@@ -2120,6 +2352,9 @@ def main() -> int:
     profiling_phase(device, compiled_by_name, paths)
     paths["fuzz"] = fuzz_phase()
     t0 = time.perf_counter()
+    _, paths["protocol"] = protocol_phase()
+    print(f"protocol_phase_s {time.perf_counter() - t0:.2f}", flush=True)
+    t0 = time.perf_counter()
     _, paths["bench"], _ = entry_phase()
     print(f"entry_phase_s {time.perf_counter() - t0:.2f}", flush=True)
     t0 = time.perf_counter()
@@ -2250,4 +2485,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:  # one rank of multi_card_mesh
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         sys.exit(mesh_rank_main(*map(int, sys.argv[2:5]), sys.argv[5]))
+    if sys.argv[1:2] == ["--serve"]:  # the server role of protocol_phase
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(serve_main(sys.argv[2]))
     sys.exit(main())

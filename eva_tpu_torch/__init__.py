@@ -7,7 +7,8 @@ operator overloads, compile with `eva_tpu_torch.ckks.CKKSCompiler`, generate key
 with `eva_tpu_torch.runtime.generate_keys`, then encrypt/execute/decrypt. The
 compute path runs on PyTorch (hand-written CUDA NTT kernels on the GPU).
 `save`/`load` write and read the protocol objects in the JAX package's
-wire format (eva_tpu_torch.serialization; needs `protobuf`)."""
+wire format (eva_tpu_torch.serialization, through its own proto3 codec:
+no protobuf)."""
 
 from __future__ import annotations
 

@@ -10,10 +10,10 @@ format (format version 2); runtime objects use the evatpu.proto schemas
 since there is no SEAL binary format to wrap.
 
 Port of eva_tpu/serialization: the same schemas and bytes, so files
-saved by either package load in the other. The protoc-generated modules
-import each other package-relatively (nothing on sys.path), and
-`load` of a public context takes the `backend`/`device` of
-runtime.EVAPublic. Needs the `protobuf` package."""
+saved by either package load in the other. The messages go through the
+proto3 codec of `wire` (no protobuf package), whose bytes are protobuf's
+deterministic ones, and `load` of a public context takes the
+`backend`/`device` of runtime.EVAPublic."""
 
 from __future__ import annotations
 
@@ -21,11 +21,11 @@ from typing import Dict
 
 import numpy as np
 
-from . import eva_pb2, ckks_pb2, known_type_pb2, evatpu_pb2
+from .wire import Message, any_type_name, decode, encode, pack_any
 
 from .. import __version__ as _version
-from ..ir import (CONSTANT_VALUE, DenseConstantValue, Op, Program,
-                  SparseConstantValue, Term, Type, VALID_OPS)
+from ..ir import (DenseConstantValue, Op, Program, SparseConstantValue,
+                  Type, VALID_OPS)
 from ..ckks.params import CKKSEncodingInfo, CKKSParameters, CKKSSignature
 
 EVA_FORMAT_VERSION = 2
@@ -40,15 +40,14 @@ _CONST_KEYS = {3}          # ConstantValue
 # -- Program ------------------------------------------------------------------
 
 
-def _serialize_constant(value, msg) -> None:
-    msg.size = value.size
+def _serialize_constant(value) -> Message:
+    msg = Message("ConstantValue", size=value.size)
     if isinstance(value, SparseConstantValue):
-        for idx, v in value.values:
-            msg.sparse_indices.append(idx)
-            msg.values.append(v)
-    else:
-        if not value.is_zero():
-            msg.values.extend(value.values)
+        msg.sparse_indices = [idx for idx, _ in value.values]
+        msg.values = [v for _, v in value.values]
+    elif not value.is_zero():
+        msg.values = list(value.values)
+    return msg
 
 
 def _deserialize_constant(msg):
@@ -60,22 +59,17 @@ def _deserialize_constant(msg):
     return DenseConstantValue(msg.size, list(msg.values))
 
 
-def serialize_program(program: Program) -> "eva_pb2.Program":
-    msg = eva_pb2.Program()
-    msg.ir_version = EVA_FORMAT_VERSION
-    msg.name = program.name
-    msg.vec_size = program.vec_size
+def serialize_program(program: Program) -> Message:
+    msg = Message("Program", ir_version=EVA_FORMAT_VERSION,
+                  name=program.name, vec_size=program.vec_size)
     order = program.topological_order()
     index_of: Dict[int, int] = {}
     for i, term in enumerate(order):
         index_of[term.index] = i
-        tmsg = msg.terms.add()
-        tmsg.op = int(term.op)
-        for o in term.operands:
-            tmsg.operands.append(index_of[o.index])
+        tmsg = Message("Term", op=int(term.op),
+                       operands=[index_of[o.index] for o in term.operands])
         for key in sorted(term.attributes):
-            amsg = tmsg.attributes.add()
-            amsg.key = key
+            amsg = Message("Attribute", key=key)
             value = term.attributes[key]
             if key in _U32_KEYS:
                 amsg.uint32 = int(value)
@@ -84,17 +78,15 @@ def serialize_program(program: Program) -> "eva_pb2.Program":
             elif key in _TYPE_KEYS:
                 amsg.type = int(value)
             elif key in _CONST_KEYS:
-                _serialize_constant(value, amsg.constant_value)
+                amsg.constant_value = _serialize_constant(value)
             else:
                 raise RuntimeError(f"Unknown attribute key {key}")
-    for name, term in program.inputs.items():
-        e = msg.inputs.add()
-        e.term = index_of[term.index]
-        e.name = name
-    for name, term in program.outputs.items():
-        e = msg.outputs.add()
-        e.term = index_of[term.index]
-        e.name = name
+            tmsg.attributes.append(amsg)
+        msg.terms.append(tmsg)
+    msg.inputs = [Message("TermName", term=index_of[term.index], name=name)
+                  for name, term in program.inputs.items()]
+    msg.outputs = [Message("TermName", term=index_of[term.index], name=name)
+                   for name, term in program.outputs.items()]
     return msg
 
 
@@ -110,7 +102,7 @@ def deserialize_program(msg) -> Program:
             raise RuntimeError(f"Invalid op code {tmsg.op}")
         term = program.make_term(Op(tmsg.op), [terms[i] for i in tmsg.operands])
         for amsg in tmsg.attributes:
-            which = amsg.WhichOneof("value")
+            which = amsg.which("value")
             if which == "uint32":
                 term.set_attr(amsg.key, amsg.uint32)
             elif which == "int32":
@@ -130,11 +122,10 @@ def deserialize_program(msg) -> Program:
 # -- CKKS objects -------------------------------------------------------------
 
 
-def serialize_params(params: CKKSParameters):
-    msg = ckks_pb2.CKKSParameters()
-    msg.prime_bits.extend(params.prime_bits)
-    msg.rotations.extend(params.rotations)
-    msg.poly_modulus_degree = params.poly_modulus_degree
+def serialize_params(params: CKKSParameters) -> Message:
+    msg = Message("CKKSParameters", prime_bits=list(params.prime_bits),
+                  rotations=list(params.rotations),
+                  poly_modulus_degree=params.poly_modulus_degree)
     key_terms = getattr(params, "key_terms", 1)
     if key_terms != 1:  # absent field (0) means 1: pre-round-5 files
         msg.key_terms = key_terms
@@ -147,15 +138,11 @@ def deserialize_params(msg) -> CKKSParameters:
                           key_terms=msg.key_terms or 1)
 
 
-def serialize_signature(sig: CKKSSignature):
-    msg = ckks_pb2.CKKSSignature()
-    msg.vec_size = sig.vec_size
-    for name, info in sig.inputs.items():
-        m = msg.inputs[name]
-        m.input_type = int(info.input_type)
-        m.scale = info.scale
-        m.level = info.level
-    return msg
+def serialize_signature(sig: CKKSSignature) -> Message:
+    return Message("CKKSSignature", vec_size=sig.vec_size, inputs={
+        name: Message("CKKSEncodingInfo", input_type=int(info.input_type),
+                      scale=info.scale, level=info.level)
+        for name, info in sig.inputs.items()})
 
 
 def deserialize_signature(msg) -> CKKSSignature:
@@ -167,12 +154,13 @@ def deserialize_signature(msg) -> CKKSSignature:
 # -- runtime objects ----------------------------------------------------------
 
 
-def _poly_to_msg(arr: np.ndarray, msg) -> None:
+def _poly_to_msg(arr: np.ndarray) -> Message:
+    msg = Message("Poly", data=arr.astype("<u8").tobytes())
     if arr.ndim == 3:  # sharded big-vector planes [shards, n_sub, n]
         msg.shards, msg.n_sub, msg.n = arr.shape
     else:
         msg.n_sub, msg.n = arr.shape
-    msg.data = arr.astype("<u8").tobytes()
+    return msg
 
 
 def _poly_from_msg(msg) -> np.ndarray:
@@ -182,34 +170,28 @@ def _poly_from_msg(msg) -> np.ndarray:
     return flat.reshape(msg.n_sub, msg.n).copy()
 
 
-def serialize_valuation(val):
+def serialize_valuation(val) -> Message:
     from ..crypto.ciphertext import Ciphertext, Plaintext
-    msg = evatpu_pb2.EVAValuation()
-    msg.params.CopyFrom(serialize_params(val.params))
+    msg = Message("EVAValuation", params=serialize_params(val.params))
     for name, v in val.items():
         if isinstance(v, Ciphertext):
-            c = msg.ciphers[name]
-            c.level = v.level
-            c.scale = v.scale
+            c = msg.ciphers[name] = Message("CipherObj", level=v.level,
+                                            scale=v.scale)
             if v.seed is not None and v.size == 2:
                 from ..crypto.keys import default_xof
                 c.seed = v.seed
                 c.xof = (v.seed_xof if v.seed_xof is not None
                          else default_xof())
-                _poly_to_msg(v.polys[0], c.polys.add())  # c0 only
+                c.polys = [_poly_to_msg(v.polys[0])]  # c0 only
             else:
-                for p in v.polys:
-                    _poly_to_msg(p, c.polys.add())
+                c.polys = [_poly_to_msg(p) for p in v.polys]
         elif isinstance(v, Plaintext):
-            p = msg.plains[name]
-            p.level = v.level
-            p.scale = v.scale
-            _poly_to_msg(v.poly, p.poly)
+            msg.plains[name] = Message("PlainObj", poly=_poly_to_msg(v.poly),
+                                       level=v.level, scale=v.scale)
         else:
-            r = msg.raws[name]
             vals = np.asarray(v, dtype=np.float64)
-            r.size = len(vals)
-            r.values.extend(vals.tolist())
+            msg.raws[name] = Message("RawObj", size=len(vals),
+                                     values=vals.tolist())
     return msg
 
 
@@ -240,16 +222,15 @@ def deserialize_valuation(msg):
     return val
 
 
-def _ksk_to_msg(ksk, msg) -> None:
-    for d in ksk.k0:
-        _poly_to_msg(d, msg.k0.add())
+def _ksk_to_msg(ksk) -> Message:
+    msg = Message("KSwitchKeyMsg", k0=[_poly_to_msg(d) for d in ksk.k0],
+                  ks_alpha=ksk.alpha)
     if ksk.k1_seeds:
-        msg.k1_seeds.extend(ksk.k1_seeds)
+        msg.k1_seeds = list(ksk.k1_seeds)
         msg.xof = ksk.xof
     else:
-        for d in ksk.k1:
-            _poly_to_msg(d, msg.k1.add())
-    msg.ks_alpha = ksk.alpha
+        msg.k1 = [_poly_to_msg(d) for d in ksk.k1]
+    return msg
 
 
 def _ksk_from_msg(msg, ctx):
@@ -264,18 +245,17 @@ def _ksk_from_msg(msg, ctx):
     return KSwitchKey(k0, [_poly_from_msg(p) for p in msg.k1], alpha=alpha)
 
 
-def serialize_public(pub):
-    msg = evatpu_pb2.EVAPublicMsg()
-    msg.params.CopyFrom(serialize_params(pub.params))
-    _poly_to_msg(pub._keys.public.b, msg.pk_b)
-    if pub._keys.public.a_seed:
-        msg.pk_a_seed = pub._keys.public.a_seed
-        msg.pk_xof = pub._keys.public.xof
+def serialize_public(pub) -> Message:
+    keys = pub._keys
+    msg = Message("EVAPublicMsg", params=serialize_params(pub.params),
+                  pk_b=_poly_to_msg(keys.public.b),
+                  relin=_ksk_to_msg(keys.relin),
+                  galois={g: _ksk_to_msg(k) for g, k in keys.galois.items()})
+    if keys.public.a_seed:
+        msg.pk_a_seed = keys.public.a_seed
+        msg.pk_xof = keys.public.xof
     else:
-        _poly_to_msg(pub._keys.public.a, msg.pk_a)
-    _ksk_to_msg(pub._keys.relin, msg.relin)
-    for g, k in pub._keys.galois.items():
-        _ksk_to_msg(k, msg.galois[g])
+        msg.pk_a = _poly_to_msg(keys.public.a)
     return msg
 
 
@@ -303,11 +283,10 @@ def deserialize_public(msg, backend: str = "torch", device=None):
     return EVAPublic(ctx, keyset, params, backend=backend, device=device)
 
 
-def serialize_secret(sec):
-    msg = evatpu_pb2.EVASecretMsg()
-    msg.params.CopyFrom(serialize_params(sec.params))
-    msg.secret_coeffs = sec._keys.secret.coeffs.astype(np.int8).tobytes()
-    return msg
+def serialize_secret(sec) -> Message:
+    return Message("EVASecretMsg", params=serialize_params(sec.params),
+                   secret_coeffs=sec._keys.secret.coeffs.astype(
+                       np.int8).tobytes())
 
 
 def deserialize_secret(msg):
@@ -327,8 +306,7 @@ def deserialize_secret(msg):
 # -- KnownType envelope + save/load ------------------------------------------
 
 
-def _to_message(obj):
-    from ..crypto.ciphertext import Ciphertext  # noqa: F401
+def _to_message(obj) -> Message:
     from ..runtime import EVAPublic, EVASecret, EVAValuation
     if isinstance(obj, Program):
         return serialize_program(obj)
@@ -345,54 +323,46 @@ def _to_message(obj):
     raise TypeError(f"Cannot serialize object of type {type(obj)}")
 
 
-_DESERIALIZERS = [
-    (eva_pb2.Program, deserialize_program),
-    (ckks_pb2.CKKSParameters, deserialize_params),
-    (ckks_pb2.CKKSSignature, deserialize_signature),
-    (evatpu_pb2.EVAValuation, deserialize_valuation),
-    (evatpu_pb2.EVAPublicMsg, deserialize_public),
-    (evatpu_pb2.EVASecretMsg, deserialize_secret),
-]
-
-
-def save(obj, path: str) -> None:
-    env = known_type_pb2.KnownType()
-    env.contents.Pack(_to_message(obj))
-    env.creator = f"EVA-TPU {_version}"
-    with open(path, "wb") as f:
-        f.write(env.SerializeToString())
+# The envelope's message full name -> its deserializer.
+_DESERIALIZERS = {
+    "eva.msg.Program": deserialize_program,
+    "eva.msg.CKKSParameters": deserialize_params,
+    "eva.msg.CKKSSignature": deserialize_signature,
+    "eva.msg.EVAValuation": deserialize_valuation,
+    "eva.msg.EVAPublicMsg": deserialize_public,
+    "eva.msg.EVASecretMsg": deserialize_secret,
+}
 
 
 def save_to_string(obj) -> bytes:
-    env = known_type_pb2.KnownType()
-    env.contents.Pack(_to_message(obj))
-    env.creator = f"EVA-TPU {_version}"
-    return env.SerializeToString()
+    return encode(Message("KnownType", contents=pack_any(_to_message(obj)),
+                          creator=f"EVA-TPU {_version}"))
 
 
-def _load_envelope(env, backend: str = "torch", device=None):
-    for msg_type, fn in _DESERIALIZERS:
-        if env.contents.Is(msg_type.DESCRIPTOR):
-            msg = msg_type()
-            env.contents.Unpack(msg)
-            if fn is deserialize_public:
-                return fn(msg, backend=backend, device=device)
-            return fn(msg)
-    raise RuntimeError(
-        f"Unknown serialized type {env.contents.TypeName()} "
-        f"(created by {env.creator!r})")
+def save(obj, path: str) -> None:
+    data = save_to_string(obj)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def load_from_string(data: bytes, backend: str = "torch", device=None):
+    """The object saved in `data`; a public context is built on
+    `backend`/`device` (see deserialize_public)."""
+    env = decode("KnownType", data)
+    name = any_type_name(env.contents) if env.contents is not None else ""
+    fn = _DESERIALIZERS.get(name)
+    if fn is None:
+        raise RuntimeError(f"Unknown serialized type {name} "
+                           f"(created by {env.creator!r})")
+    msg = decode(name, env.contents.value)
+    if fn is deserialize_public:
+        return fn(msg, backend=backend, device=device)
+    return fn(msg)
 
 
 def load(path: str, backend: str = "torch", device=None):
     """The object saved at `path`; a public context is built on
     `backend`/`device` (see deserialize_public)."""
-    env = known_type_pb2.KnownType()
     with open(path, "rb") as f:
-        env.ParseFromString(f.read())
-    return _load_envelope(env, backend, device)
-
-
-def load_from_string(data: bytes, backend: str = "torch", device=None):
-    env = known_type_pb2.KnownType()
-    env.ParseFromString(data)
-    return _load_envelope(env, backend, device)
+        data = f.read()
+    return load_from_string(data, backend, device)

@@ -7,8 +7,8 @@ examples/serialization.py, in the JAX package's wire format.
 
 Keys and the public context are built on the CUDA device. Without one
 it exits non-zero, unless run with --cpu (the plain PyTorch versions on
-the host). save/load need `protobuf`; without it the first save
-raises.
+the host). save/load go through the port's own wire codec and need no
+protobuf.
 
 Run:  python examples/serialization_torch.py [--cpu]
 """

@@ -1,14 +1,16 @@
 """eva_tpu_torch.serialization against the JAX package's wire format.
 
-The port's serialization is a copy of eva_tpu's with package-relative
-protoc imports. Both packages register the same descriptors in
-protobuf's default pool, so bytes saved by either load in the other:
-the frozen fixtures (tests/fixtures/, made by eva_tpu) load in the port
-and the port saves the same payload; the public context, secret context
-and an encrypted valuation saved by either package load in both, and
-both re-save them to the same bytes: the original's, up to the order of
-the public context's map of Galois keys (a parse and re-save reorders
-it in the JAX package too)."""
+The port writes and reads the JAX package's schemas through its own
+proto3 codec (eva_tpu_torch.serialization.wire), whose bytes are
+protobuf's deterministic ones, so bytes saved by either package load in
+the other: the frozen fixtures (tests/fixtures/, made by eva_tpu) load
+in the port and the port saves the same payload; the public context,
+secret context and an encrypted valuation saved by either package load
+in both, and both re-save them to the same bytes: the original's, up to
+the order of the public context's map of Galois keys, which protobuf
+writes in its hash table's order and the port in the deterministic
+order. The port imports no protobuf: with it blocked, the serialization
+example and a save and load of each payload still run."""
 
 import os
 import subprocess
@@ -20,6 +22,7 @@ import torch
 import eva_tpu
 import eva_tpu_torch
 from eva_tpu import serialization as SJ
+from eva_tpu.serialization import known_type_pb2
 from eva_tpu.ckks import CKKSCompiler as CompilerJ
 from eva_tpu.runtime import generate_keys as keygen_j
 from eva_tpu_torch import serialization as ST
@@ -59,9 +62,29 @@ def rotating(pkg):
 def _payload(blob: bytes):
     """(type_url, value) of the envelope, creator tag excluded (as
     tests/test_serialization.py compares the fixtures)."""
-    env = ST.known_type_pb2.KnownType()
+    env = known_type_pb2.KnownType()
     env.ParseFromString(blob)
     return env.contents.type_url, env.contents.value
+
+
+def _contents(blob: bytes):
+    """(the envelope, the message it holds), parsed by protobuf with the
+    JAX package's generated modules."""
+    from google.protobuf import symbol_database
+    env = known_type_pb2.KnownType()
+    env.ParseFromString(blob)
+    msg = symbol_database.Default().GetSymbol(env.contents.TypeName())()
+    assert env.contents.Unpack(msg)
+    return env, msg
+
+
+def _deterministic(blob: bytes) -> bytes:
+    """The JAX package's envelope of the same message, serialized with
+    deterministic=True (inside the Any too)."""
+    env, msg = _contents(blob)
+    out = known_type_pb2.KnownType(creator=env.creator)
+    out.contents.Pack(msg, deterministic=True)
+    return out.SerializeToString(deterministic=True)
 
 
 def _compile(compiler, prog):
@@ -103,14 +126,20 @@ def protocol():
     inputs = {"x": [0.01 * i for i in range(prog_t.vec_size)]}
     pub_j, sec_j = keygen_j(params_j)
     pub_t, sec_t = keygen_t(params_t, device="cpu")
+    enc_t = pub_t.encrypt(inputs, sig_t)
     return {
         "jax": {"pub": SJ.save_to_string(pub_j),
                 "sec": SJ.save_to_string(sec_j),
                 "enc": SJ.save_to_string(pub_j.encrypt(inputs, sig_j))},
         "torch": {"pub": ST.save_to_string(pub_t),
                   "sec": ST.save_to_string(sec_t),
-                  "enc": ST.save_to_string(pub_t.encrypt(inputs, sig_t))},
-        "program": (compiled_t, sig_t, prog_t, inputs)}
+                  "enc": ST.save_to_string(enc_t)},
+        "program": (compiled_t, sig_t, prog_t, inputs),
+        "objects": {"program": (compiled_t, compiled_j),
+                    "params": (params_t, params_j),
+                    "signature": (sig_t, sig_j),
+                    "pub": (pub_t, None), "sec": (sec_t, None),
+                    "enc": (enc_t, None)}}
 
 
 def _resave_j(blob):
@@ -122,32 +151,45 @@ def _resave_t(blob):
 
 
 def _canonical(blob):
-    """(type_url, contents serialized with map entries in key order).
-    A parse and re-save of a public context may reorder its map of
-    Galois keys (in the JAX package too): the canonical form is what
-    every save of the same object shares."""
-    env = ST.known_type_pb2.KnownType()
-    env.ParseFromString(blob)
-    for msg_type, _ in ST._DESERIALIZERS:
-        if env.contents.Is(msg_type.DESCRIPTOR):
-            msg = msg_type()
-            env.contents.Unpack(msg)
-            return (env.contents.type_url,
-                    msg.SerializeToString(deterministic=True))
-    raise AssertionError(env.contents.type_url)
+    """(type_url, contents serialized deterministically). A parse and
+    re-save of a public context by the JAX package may reorder its map
+    of Galois keys: the canonical form is what every save of the same
+    object shares."""
+    env, msg = _contents(blob)
+    return env.contents.type_url, msg.SerializeToString(deterministic=True)
 
 
 @pytest.mark.parametrize("made_by", ["jax", "torch"])
 @pytest.mark.parametrize("what", ["pub", "sec", "enc"])
 def test_bytes_load_in_both_and_resave_identical(protocol, made_by, what):
     """Bytes saved by either package load in both; both re-save the
-    same bytes, which equal the original up to map order."""
+    same bytes, which equal the original up to map order. The JAX
+    package writes a public context's map of Galois keys in protobuf's
+    hash order, so there the port's bytes are held to its deterministic
+    serialization of the same message."""
     blob = protocol[made_by][what]
     port, jax_ = _resave_t(blob), _resave_j(blob)
-    assert port == jax_
+    if what == "pub":
+        assert port == _deterministic(jax_)
+    else:
+        assert port == jax_
     assert _canonical(port) == _canonical(blob)
     if what != "pub":  # no map of Galois keys: the bytes themselves
         assert port == blob
+
+
+@pytest.mark.parametrize("what", ["program", "params", "signature", "pub",
+                                  "sec", "enc"])
+def test_port_bytes_are_the_deterministic_bytes(protocol, what):
+    """For the same object, the port's save_to_string is the JAX
+    package's envelope serialized with deterministic=True, byte for
+    byte: the compile-time objects as each package compiles the same
+    program, the runtime objects as the JAX package loads the port's."""
+    obj_t, obj_j = protocol["objects"][what]
+    blob = ST.save_to_string(obj_t)
+    if obj_j is None:
+        obj_j = SJ.load_from_string(blob)
+    assert blob == _deterministic(SJ.save_to_string(obj_j))
 
 
 def test_loaded_jax_contexts_run_in_port(protocol):
@@ -193,25 +235,76 @@ def test_save_load_files(protocol, tmp_path):
         assert f.read() == ST.save_to_string(sig)
 
 
-def test_generated_modules_are_the_ports_own():
-    """evatpu_pb2 imports the port's ckks_pb2 package-relatively, even
-    in a process that imported the JAX package first."""
-    assert ST.evatpu_pb2.ckks__pb2 is ST.ckks_pb2
-    assert ST.ckks_pb2.__name__ == "eva_tpu_torch.serialization.ckks_pb2"
-    assert SJ.evatpu_pb2.ckks__pb2 is not ST.ckks_pb2
-    assert ST.ckks_pb2.DESCRIPTOR is SJ.ckks_pb2.DESCRIPTOR
-
-
 def test_port_serialization_alone():
     """Imported alone, the port's serialization leaves sys.path as it was
-    and imports no top-level *_pb2 module, no JAX and no eva_tpu."""
-    code = ("import sys; before = list(sys.path); "
+    and imports no *_pb2 module, no google module (protobuf; the site
+    may have imported the `google` namespace at start-up), no JAX and
+    no eva_tpu."""
+    code = ("import sys; before = list(sys.path); had = set(sys.modules); "
             "import eva_tpu_torch.serialization as S; "
-            "bad = [m for m in sys.modules if m.endswith('_pb2') and "
-            "'.' not in m or m == 'jax' or m.startswith('jax.') or "
+            "bad = [m for m in set(sys.modules) - had if m.endswith('_pb2') or "
+            "m == 'google' or m.startswith('google.') or "
+            "m == 'jax' or m.startswith('jax.') or "
             "m == 'eva_tpu' or m.startswith('eva_tpu.')]; "
             "bad += ['sys.path'] if sys.path != before else []; "
             "print(bad); sys.exit(bool(bad))")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+BLOCK_PROTOBUF = """
+import os, runpy, sys, tempfile
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name == "google.protobuf" or name.startswith("google.protobuf."):
+            raise ImportError("protobuf is blocked: " + name)
+sys.meta_path.insert(0, Block())
+sys.argv = ["examples/serialization_torch.py", "--cpu"]
+runpy.run_path(sys.argv[0], run_name="__main__")
+
+import eva_tpu_torch as E
+from eva_tpu_torch.ckks import CKKSCompiler
+from eva_tpu_torch.metric import valuation_mse
+from eva_tpu_torch.runtime import generate_keys
+prog = E.EvaProgram("Rotating", vec_size=1024)
+with prog:
+    x = E.Input("x")
+    y = (x << 1) + (x << 2) * 3 + x ** 2
+    E.Output("y", y + (y << 4))
+prog.set_output_ranges(20)
+prog.set_input_scales(30)
+compiled, params, sig = CKKSCompiler({"warn_vec_size": "false"}).compile(prog)
+pub, sec = generate_keys(params, device="cpu")
+inputs = {"x": [0.01 * i for i in range(prog.vec_size)]}
+enc = pub.encrypt(inputs, sig)
+tmp = tempfile.mkdtemp()
+loaded = {}
+for name, obj in (("eva", compiled), ("evaparams", params),
+                  ("evasignature", sig), ("evapublic", pub),
+                  ("evasecret", sec), ("evavals", enc)):
+    path = os.path.join(tmp, "p." + name)
+    E.save(obj, path)
+    loaded[name] = E.load(path, device="cpu")
+    assert type(loaded[name]) is type(obj), name
+    if name != "eva":  # a reloaded program's terms may come in another order
+        with open(path, "rb") as f:
+            assert f.read() == E.serialization.save_to_string(loaded[name])
+out = loaded["evapublic"].execute(loaded["eva"], loaded["evavals"])
+dec = loaded["evasecret"].decrypt(out, loaded["evasignature"])
+mse = valuation_mse(dec, E.evaluate(prog, inputs))
+assert mse < 1e-6, mse
+assert "google.protobuf" not in sys.modules
+print("six payloads saved and loaded; MSE", mse)
+"""
+
+
+def test_runs_with_protobuf_blocked():
+    """With google.protobuf blocked by a meta-path finder, the
+    serialization example runs to its end with --cpu, and each of the
+    six payloads saves, loads, re-saves to the same bytes and runs."""
+    proc = subprocess.run([sys.executable, "-c", BLOCK_PROTOBUF], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "MSE" in proc.stdout.splitlines()[0]
+    assert "six payloads saved and loaded" in proc.stdout

@@ -230,6 +230,40 @@ def test_noise_leg_holds_the_output_to_the_numpy_backend():
     assert not res["equal"] and res["first_diff"] == ["y", "polys", 2, 3]
 
 
+def test_centred_digits_keep_each_group_and_the_switch():
+    """tools/ks_digit_bias.py's centred digits differ from the port's by a
+    multiple of each group's product: the rows of the group's own primes
+    are equal, the others changed; a rescale-relinearize with either form
+    decrypts to the product within the noise (N=2048, two key entries,
+    alpha 4), and the port's digit function is back after the block."""
+    import ks_digit_bias as B
+    from eva_tpu_torch.crypto import keys as K
+    from eva_tpu_torch.crypto import ops
+    from eva_tpu_torch.crypto.context import get_context
+    ctx = get_context((60,) * 5, (), N, 2)
+    keys = K.generate_keys(ctx, alpha=4)
+    rng = np.random.default_rng(5)
+    primes = ctx.primes_at_level(0)
+    coeffs = np.stack([rng.integers(0, q, N, dtype=np.uint64)
+                       for q in primes])
+    port_fn = ops._ks_digits_from_coeffs
+    port = port_fn(ctx, coeffs, 0, 4)
+    with B.centred_digits():
+        centred = ops._ks_digits_from_coeffs(ctx, coeffs, 0, 4)
+    assert ops._ks_digits_from_coeffs is port_fn
+    groups, _, _ = ctx.ks_tables(0, 4)
+    assert max(map(len, groups)) > 1
+    for group, p, c in zip(groups, port, centred):
+        np.testing.assert_array_equal(p[group], c[group])
+        assert not np.array_equal(p, c)
+    values = rng.uniform(-1, 1, N // 2)
+    for form in (B.contextlib.nullcontext, B.centred_digits):
+        with form():
+            err = B.switch_error(ctx, keys, 0, values, 2.0 ** 50)
+        assert all(np.isfinite(v) for v in err.values()), err
+        assert abs(err["slot0"]) < 1e-6 and err["other_slots_std"] < 1e-6
+
+
 def test_reproduce_e2e_on_the_cpu():
     res = reproduce_torch.e2e("cpu", vec_size=256, reps=2)
     assert res["mse"] < 0.01 and res["first_execute_s"] > 0
