@@ -237,19 +237,26 @@ def card_line() -> str:
 # ntt_cuda.ROWS.
 COUNTERS = ("ntt_launches", "plain_calls", "ks_launches", "ks_plain_calls",
             "ks_max_batch", "modmath_launches", "modmath_plain_calls",
-            "modmath_ops", "probe_launches")
+            "modmath_ops", "probe_launches", "ntt_shard_launches",
+            "ntt_shard_plain_calls")
 # The counters of the kernels a program's path launches (K1, K2, K4, K5,
-# E1 by form, E2, E3).
-PATH_COUNTERS = ("ntt_launches", "ks_launches", "modmath_launches")
+# E1 by form, E2, E3; K6, K7 on the seq mesh programs).
+PATH_COUNTERS = ("ntt_launches", "ks_launches", "modmath_launches",
+                 "ntt_shard_launches")
+# The counters of the plain versions' calls.
+PLAIN_COUNTERS = ("plain_calls", "ks_plain_calls", "modmath_plain_calls",
+                  "ntt_shard_plain_calls")
 
 
 def _counters():
     from eva_tpu_torch.backend import (ks, ks_cuda, modmath, modmath_cuda,
-                                       ntt_cuda, tables)
+                                       ntt_cuda, ntt_shard_cuda, tables)
+    from eva_tpu_torch.parallel import ntt_shard
     return (ntt_cuda.LAUNCHES, tables.PLAIN_CALLS, ks_cuda.LAUNCHES,
             ks.PLAIN_CALLS, ks_cuda.MAX_BATCH, modmath_cuda.LAUNCHES,
             modmath.PLAIN_CALLS, modmath_cuda.OPS,
-            modmath_cuda.PROBE_LAUNCHES)
+            modmath_cuda.PROBE_LAUNCHES, ntt_shard_cuda.LAUNCHES,
+            ntt_shard.PLAIN_CALLS)
 
 
 def reset_counts():
@@ -271,12 +278,11 @@ def read_counts():
 def path_launches(counts=None) -> dict:
     """{kernel: launches} of the PATH_COUNTERS in `counts` (read_counts(),
     by default read now), and "plain_calls": every plain-version call
-    (NTT, key switch, modmath) summed."""
+    (NTT, key switch, modmath, sharded NTT) summed."""
     counts = read_counts() if counts is None else counts
     out = {k: v for c in PATH_COUNTERS for k, v in counts[c].items()}
-    out["plain_calls"] = sum(
-        v for c in ("plain_calls", "ks_plain_calls", "modmath_plain_calls")
-        for v in counts[c].values())
+    out["plain_calls"] = sum(v for c in PLAIN_COUNTERS
+                             for v in counts[c].values())
     return out
 
 

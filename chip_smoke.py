@@ -8,7 +8,8 @@ Run from the root of a checkout, with no arguments:
 Phases (any failure exits non-zero and prints no result line):
   1. Card: print the card's name and power limit, build the CUDA kernel
      libraries from eva_tpu_torch/csrc with nvcc (sm_90a), one nvcc per
-     source (ntt.cu, ks.cu, modmath.cu), all started together.
+     source (ntt.cu, ks.cu, modmath.cu, ntt_shard.cu), all started
+     together.
   2. Kernels: each kernel against its plain PyTorch version on the card,
      on random reduced residues from a fixed seed (int32 tensors of
      uint32 bits); equality by torch.equal (exact modular arithmetic:
@@ -43,7 +44,14 @@ Phases (any failure exits non-zero and prints no result line):
      launch, with an addend) at E3_SHAPES; E1 reading a strided
      operand in place (one device operation, the kernel: no copy); and
      E4 (modmul_burn: 16 dependent Montgomery multiplies a word,
-     bench_torch.py's modular-multiply rate probe) at BURN_SHAPES.
+     bench_torch.py's modular-multiply rate probe) at BURN_SHAPES. The
+     sharded NTT's local phases (ntt_shard_kernel_phase: K6, the
+     forward column and row phases, and K7, the inverse ones, of
+     parallel/ntt_shard.ShardPhases), their registers and spills first,
+     on every rank of 1, 2 and 4 shards at NTT_SHARD_SHAPES (Sobel's
+     level 0 at batch 1 and 4, its key-switch basis, N = 1024 and
+     32768), each phase against its plain version and the phases
+     composed over the ranks against K1 and K2.
      Device times by CUDA events around CUDA-graph replays; eager
      per-call times beside them; a bound for each timed shape.
   3. Keygen: the key-switching-key arithmetic (DeviceKeygen, K1 at
@@ -89,14 +97,18 @@ Phases (any failure exits non-zero and prints no result line):
      without a mesh, through the captured program (K1, K2, K4, K5
      launched, counted as path sobel_mesh; no plain version), both timed
      in turns; ShardedKeySwitch and ShardedNTT at one shard against the
-     fused key switch and K1, eagerly and as graph replays; the one-rank
+     fused key switch and K1 (its inverse against K2), eagerly and as
+     graph replays; the one-rank
      collective overhead; the digit-parallel, seq and dp+seq programs
      forced on the same mesh (TorchProgram._force_plan), each replayed
      from its captured graph with its NCCL collectives inside, over two
      batches bit-identical to the batch without a mesh and to its own
      eager run, captured and eager timed in turns (counted as paths
      sobel_mesh_dp, sobel_mesh_seq and sobel_mesh_dp_seq: only the
-     kernels of each plan, no plain version); with more than one card,
+     kernels of each plan, no plain version: seq and dp+seq launch K6
+     and K7 and no K1/K2, no other plan K6 or K7; one `mesh_launches`
+     line per plan with a replay's launches by kernel and E1 op); with
+     more than one card,
      Sobel on {batch, limb} and {seq} meshes of one rank per card
      against one card, each plan through a captured graph (this
      script's --mesh-rank processes, waited for). Then
@@ -162,7 +174,9 @@ Phases (any failure exits non-zero and prints no result line):
      key's n_key 4 at alpha 4, batch 8), timed, in their `by_shape`.
   4. One JSON line of kernel numbers, K1, K2, K4, K5, E1 (its single,
      several-planes and MAC forms as mod_ew, mod_ew_multi, mod_ew_mac),
-     E2, E3 and E4 (its launches those of the bench run)
+     E2, E3, E4 (its launches those of the bench run) and K6, K7 (their
+     launches those of the seq plan's replay; ms, plain_ms and bound_ms
+     of both phases of one transform)
      (keygen's launches under `launches_keygen`, the mesh phase's under
      launches_by_path "sobel_mesh" and "sobel_mesh_<plan>", the protocol
      server's under "protocol"), then the device line last.
@@ -940,6 +954,124 @@ def record_form(results, key, label, shape, kern, plain, inputs, ops,
     results[key + (label,)] = res
 
 
+# The sharded NTT's local phases (K6 ntt_shard_fwd, K7 ntt_shard_inv), held
+# to their plain versions at (label, N, leading shape, primes, shards D):
+# one shard at Sobel's level 0 (the seq program on one rank) at batch 1
+# and 4, its key-switch basis (13 primes), every rank of 2 and 4 shards,
+# and N = 1024 (n1 = 8) and 32768 (n1 = 256). TIMED_SHARD are timed.
+NTT_SHARD_SHAPES = (
+    ("sobel_l0", 16384, (), 11, 1),
+    ("sobel_l0_b4", 16384, (4,), 11, 1),
+    ("ext_b4", 16384, (4,), 13, 1),
+    ("d2_b4", 16384, (4,), 11, 2),
+    ("d4_b4", 16384, (4,), 11, 4),
+    ("n1024_d4", 1024, (2,), 3, 4),
+    ("n32768_d2", 32768, (2,), 13, 2),
+)
+TIMED_SHARD = ("sobel_l0", "sobel_l0_b4")
+NTT_SHARD_PHASES = {"fwd_cols": "ntt_shard_fwd", "fwd_rows": "ntt_shard_fwd",
+                    "inv_rows": "ntt_shard_inv", "inv_cols": "ntt_shard_inv"}
+OPS_PER_SHOUP = 6
+
+
+def ntt_shard_bound_ms(ph, name, x):
+    """Least time for one phase launch on x: x read and the output
+    written once, the twiddle pairs it multiplies by and the stage table
+    read once; its butterflies at OPS_PER_BUTTERFLY and its Shoup
+    multiplies at OPS_PER_SHOUP."""
+    size = ph.n1 if name.endswith("cols") else ph.n2
+    mults = {"fwd_cols": 2, "fwd_rows": 0}.get(name, 1)
+    n_sub, words = len(ph.primes), x.numel()
+    # A pair table holds (w, wp) for each word of one polynomial's shard.
+    table = 2 * n_sub * (ph.n // ph.n_dev)
+    byts = RESIDUE_BYTES * (2 * words + mults * table + 2 * n_sub * size)
+    ops = (words // 2 * int(math.log2(size)) * OPS_PER_BUTTERFLY
+           + mults * words * OPS_PER_SHOUP)
+    return bound(byts, ops)
+
+
+def ntt_shard_kernel_phase(device):
+    """Phase 2, the sharded NTT's local phases: each of the four phases
+    of parallel/ntt_shard.ShardPhases on every rank at NTT_SHARD_SHAPES,
+    the kernel (K6 forward, K7 inverse) against its plain version
+    (torch.equal), the two forward phases composed over the ranks (with
+    the all-to-all done here) against K1 and the inverse ones against
+    K2; timed at TIMED_SHARD by graph_ms beside the plain version and
+    the bound. Returns the numbers by (kernel, phase, label)."""
+    import torch
+    from eva_tpu_torch.backend import ntt_shard_cuda
+    from eva_tpu_torch.backend.tables import DeviceLevelOps
+    from eva_tpu_torch.crypto.context import get_context
+    from eva_tpu_torch.parallel.ntt_shard import ShardPhases
+
+    print("kernels ntt_shard resources "
+          + json.dumps(ntt_shard_cuda.kernel_info(device)), flush=True)
+    results = {}
+    for label, n, lead, n_sub, d in NTT_SHARD_SHAPES:
+        primes = list(get_context(tuple(SOBEL_BITS), (), n,
+                                  1).all_primes)[:n_sub]
+        rng = np.random.default_rng(SEED + n + n_sub + d + len(lead))
+        x = residues(rng, primes, tuple(lead) + (n,), device)
+        phases = [ShardPhases(primes, n, d, r, device) for r in range(d)]
+        n1, n2 = phases[0].n1, phases[0].n2
+        planes = x.reshape(x.shape[:-1] + (n1, n2))
+
+        def a2a(parts):
+            """The tiled all-to-all of ShardedNTT over the ranks' planes:
+            rank r gets block r of every rank's axis -2, side by side."""
+            return [torch.cat([p.chunk(d, dim=-2)[r] for p in parts],
+                              dim=-1).contiguous() for r in range(d)]
+
+        def run(name, parts):
+            outs = []
+            for r, (ph, v) in enumerate(zip(phases, parts)):
+                got = getattr(ph, name)(v)
+                want = getattr(ph, "plain_" + name)(v)
+                torch.cuda.synchronize()
+                if not (got.dtype == torch.int32 and got.is_contiguous()
+                        and torch.equal(got, want)):
+                    raise AssertionError(f"{NTT_SHARD_PHASES[name]} {name} "
+                                         f"differs from its plain version "
+                                         f"at {label} rank {r}")
+                outs.append(got)
+                if label in TIMED_SHARD and r == 0:
+                    bms, bby = ntt_shard_bound_ms(ph, name, v)
+                    res = {"shape": list(v.shape),
+                           "ms": graph_ms(lambda: getattr(ph, name)(v), 50),
+                           "eager_ms": eager_ms(
+                               lambda: getattr(ph, name)(v), 200),
+                           "plain_ms": graph_ms(
+                               lambda: getattr(ph, "plain_" + name)(v), 5,
+                               reps=3),
+                           "bound_ms": bms, "bound_by": bby,
+                           "max_abs_err": int((got.long() - want.long())
+                                              .abs().max().item())}
+                    print(f"kernel {NTT_SHARD_PHASES[name]} {name} {label} "
+                          + json.dumps(res), flush=True)
+                    results[(NTT_SHARD_PHASES[name], name, label)] = res
+            return outs
+
+        nl = n2 // d
+        fwd = run("fwd_rows", a2a(run("fwd_cols", [
+            planes[..., r * nl:(r + 1) * nl].contiguous()
+            for r in range(d)])))
+        dev = DeviceLevelOps(primes, n, device)
+        k1 = dev.ntt(x)
+        back = run("inv_cols", a2a(run("inv_rows", fwd)))
+        checks = {"fwd_equals_k1": torch.equal(
+                      torch.cat(fwd, dim=-2).reshape(x.shape), k1),
+                  "inv_equals_k2": torch.equal(
+                      torch.cat(back, dim=-1).reshape(x.shape),
+                      dev.intt(k1)),
+                  "roundtrip": torch.equal(
+                      torch.cat(back, dim=-1).reshape(x.shape), x)}
+        print(f"kernels ntt_shard {label} shape={list(x.shape)} shards={d} "
+              f"{checks}", flush=True)
+        if not all(checks.values()):
+            raise AssertionError(f"sharded NTT phases at {label}: {checks}")
+    return results
+
+
 def read_rows():
     """{NTT kernel: {rows: launches}}: the NTT launches by row count."""
     from eva_tpu_torch.backend import ntt_cuda
@@ -949,18 +1081,22 @@ def read_rows():
 def _plain(counts):
     return {**counts["plain_calls"], **counts["ks_plain_calls"],
             **{f"modmath {k}": v
-               for k, v in counts["modmath_plain_calls"].items()}}
+               for k, v in counts["modmath_plain_calls"].items()},
+            **{f"plain {k}": v
+               for k, v in counts["ntt_shard_plain_calls"].items()}}
 
 
 def check_counts(name, counts, fused: bool):
     """Every kernel of the path launched (K1, K2, E1 in each form:
     single, several planes, MAC; E2, E3; K4 and K5 on the fused path), no
-    plain version called; on the structured path (fused False) no
-    key-switch kernel either."""
+    plain version called and no sharded-NTT kernel (K6, K7: the seq mesh
+    programs' only); on the structured path (fused False) no key-switch
+    kernel either."""
     ntt, ksl = counts["ntt_launches"], counts["ks_launches"]
     ok = (min(ntt.values()) > 0
           and min(counts["modmath_launches"].values()) > 0
           and not any(_plain(counts).values())
+          and not any(counts["ntt_shard_launches"].values())
           and (min(ksl.values()) > 0 if fused else not any(ksl.values())))
     if not ok:
         raise AssertionError(f"{name}: counts {counts}")
@@ -1596,17 +1732,28 @@ def multi_card_mesh(pub, encs, want, world: int):
 # The forced one-rank mesh plans (TorchProgram._force_plan) and the
 # kernels each launches; every other kernel of the path stays at 0. dp's
 # key switches are digit-parallel and structured (digits, all-reduce,
-# iNTT, E3, NTT: no K4/K5, no E1 MAC form); seq routes every transform
-# through ShardedNTT, whose stages are E1 launches (no K1/K2), and MACs
-# structured digits (E1's MAC form); dp+seq takes neither K1/K2 nor the
+# iNTT, E3, NTT: no K4/K5, no E1 MAC form, no K6/K7); seq routes every
+# transform through ShardedNTT, whose local phases are K6 (forward) and
+# K7 (inverse) launches, one a phase (no K1/K2), and MACs structured
+# digits (E1's MAC form); dp+seq takes K6/K7 and neither K1/K2 nor the
 # MAC form.
 MESH_PLANS = {
     "dp": {"ntt_fwd", "ntt_inv", "mod_ew", "mod_ew_multi", "tensor_product",
            "divide_last"},
-    "seq": {"mod_ew", "mod_ew_multi", "mod_ew_mac", "tensor_product",
-            "divide_last"},
-    "dp+seq": {"mod_ew", "mod_ew_multi", "tensor_product", "divide_last"},
+    "seq": {"ntt_shard_fwd", "ntt_shard_inv", "mod_ew", "mod_ew_multi",
+            "mod_ew_mac", "tensor_product", "divide_last"},
+    "dp+seq": {"ntt_shard_fwd", "ntt_shard_inv", "mod_ew", "mod_ew_multi",
+               "tensor_product", "divide_last"},
 }
+
+
+def launches_by_kernel(launches):
+    """{kernel: launches} of one replay (a capture's _Captured.launches),
+    E1's single and several-planes forms split by op as "mod_ew[op]"."""
+    out = {k: v for c in PATH_COUNTERS for k, v in launches[c].items()}
+    out.update({f"mod_ew[{op}]": v
+                for op, v in launches.get("modmath_ops", {}).items()})
+    return out
 
 
 def check_plan_counts(name, counts, plan):
@@ -1673,6 +1820,8 @@ def mesh_plan_phase(pub, compiled, mesh, batches, wants, plan, reps=3):
                 TorchProgram._capture = True
     finally:
         TorchProgram._force_plan = None
+    print(f"mesh_launches {plan} "
+          + json.dumps(launches_by_kernel(entry.launches)), flush=True)
     return {"counts": counts,
             "ms_per_request": {k: statistics.median(v)
                                for k, v in ms.items()},
@@ -1763,6 +1912,10 @@ def mesh_phase(device, pub, compiled, sig, seed, reps=3):
             raise AssertionError("ShardedNTT differs from K1")
         if not torch.equal(sntt.intt(sntt.ntt(x3)), x3):
             raise AssertionError("ShardedNTT does not round-trip")
+        k1 = dev.ntt(poly)
+        if not torch.equal(sntt.intt(k1.reshape(x3.shape)).reshape(
+                poly.shape), dev.intt(k1)):
+            raise AssertionError("ShardedNTT's inverse differs from K2")
         ntt_ms = {"sharded_1": eager_ms(lambda: sntt.ntt(x3), 10),
                   "k1": eager_ms(lambda: dev.ntt(poly), 50),
                   "sharded_1_graph": graph_ms(lambda: sntt.ntt(x3), 10),
@@ -2262,7 +2415,8 @@ def main() -> int:
         return 2
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
-    from eva_tpu_torch.backend import cuda_lib, modmath_cuda, ntt_cuda
+    from eva_tpu_torch.backend import (cuda_lib, modmath_cuda, ntt_cuda,
+                                       ntt_shard_cuda)
 
     # -- 1. the card and the build -------------------------------------------
     print(card_line(), flush=True)
@@ -2278,6 +2432,7 @@ def main() -> int:
     kern.update(ks_kernel_phase(device))
     kern.update(modmath_kernel_phase(device))
     kern.update(burn_phase(device))
+    kern.update(ntt_shard_kernel_phase(device))
 
     # -- 3. keygen on the card, then the main path ---------------------------
     keygen = keygen_phase(device)
@@ -2474,6 +2629,39 @@ def main() -> int:
         "by_shape": {key[-1]: {f: v[f] for f in fields}
                      for key, v in kern.items() if key[0] == "modmul_burn"},
         "resources": ew_info["modmul_burn"]})
+    shard_info = ntt_shard_cuda.kernel_info(device)
+    fields = ("shape", "ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
+              "max_abs_err")
+    for name, phases, forms in (
+            ("ntt_shard_fwd", ("fwd_cols", "fwd_rows"),
+             ("fwd_cols", "fwd_rows")),
+            ("ntt_shard_inv", ("inv_rows", "inv_cols"), ("inv",))):
+        # ms, plain_ms and bound_ms: both phases of one transform (two
+        # launches) at Sobel's level 0, batch 1; "batch4" at batch 4.
+        def both(label):
+            k = [kern[(name, ph, label)] for ph in phases]
+            return {"shape": k[0]["shape"],
+                    **{f: sum(v[f] for v in k)
+                       for f in ("ms", "eager_ms", "plain_ms", "bound_ms")},
+                    "bound_by": "+".join(v["bound_by"] for v in k),
+                    "max_abs_err": max(v["max_abs_err"] for v in k)}
+        counter = "ntt_shard_launches"
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "eva_tpu_torch/csrc/ntt_shard.cu",
+            "replaces": "eva_tpu/parallel/ntt_shard.py:"
+                        + ("132" if name.endswith("fwd") else "153"),
+            "replaces_note": "jnp stages XLA fuses in the seq programs; "
+                             "no pallas_call",
+            "launches": paths["sobel_mesh_seq"][counter][name],
+            "launches_by_path": {p: paths[p].get(counter, {}).get(name, 0)
+                                 for p in paths},
+            **{f: v for f, v in both("sobel_l0").items() if f in fields},
+            "ms_is": "both phases of one transform (2 launches)",
+            "library_ms": None, "batch4": both("sobel_l0_b4"),
+            "by_phase": {f"{ph} {lab}": kern[(name, ph, lab)]
+                         for ph in phases for lab in TIMED_SHARD},
+            "resources": {f: shard_info[f] for f in forms}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -65,12 +65,13 @@ def build(source: str, lib_path: str, verbose: bool = False) -> str:
 
 
 def build_all(verbose: bool = False) -> list:
-    """Build every kernel library of the port (ntt.cu, ks.cu, modmath.cu),
-    one nvcc per source, all started together; returns the sources."""
+    """Build every kernel library of the port (ntt.cu, ks.cu, modmath.cu,
+    ntt_shard.cu), one nvcc per source, all started together; returns the
+    sources."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from . import ks_cuda, modmath_cuda, ntt_cuda
-    libs = (ntt_cuda, ks_cuda, modmath_cuda)
+    from . import ks_cuda, modmath_cuda, ntt_cuda, ntt_shard_cuda
+    libs = (ntt_cuda, ks_cuda, modmath_cuda, ntt_shard_cuda)
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda lib: lib.build(verbose), libs))
     return [lib.SOURCE for lib in libs]

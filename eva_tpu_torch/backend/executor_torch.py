@@ -72,7 +72,8 @@ from ..crypto.ciphertext import Ciphertext, Plaintext
 from ..crypto.context import CKKSContext
 from ..ir import ROTATION, Op, Program, Term, Type
 from ..passes import rotation_hoist_sources
-from . import ks_cuda, modmath_cuda, ntt_cuda, resolve_device
+from . import (ks_cuda, modmath_cuda, ntt_cuda, ntt_shard_cuda,
+               resolve_device)
 from .modmath import to_host, to_mont, to_mont_rows as _to_mont_rows, upload
 # divide_last_planes: re-exported for the tests.
 from .ks import (MAX_KEY_PRIMES, divide_last, divide_last_planes,  # noqa: F401
@@ -1878,7 +1879,8 @@ def _counters():
             "ks_launches": ks_cuda.LAUNCHES,
             "ks_max_batch": ks_cuda.MAX_BATCH,
             "modmath_launches": modmath_cuda.LAUNCHES,
-            "modmath_ops": modmath_cuda.OPS}
+            "modmath_ops": modmath_cuda.OPS,
+            "ntt_shard_launches": ntt_shard_cuda.LAUNCHES}
 
 
 def _take_counts(restore=None) -> Dict[str, dict]:

@@ -142,6 +142,21 @@ def _sub(a, b, q):
     return torch.where(a >= b, a - b, a + q - b)
 
 
+def _add_into(out, a, b, q):
+    """out = _add(a, b, q) (widened), written into `out`: a + b
+    - q, plus q where that is negative."""
+    torch.add(a, b, out=out)
+    out.sub_(q)
+    out.add_((out >> 63).bitwise_and_(q))
+
+
+def _sub_into(out, a, b, q):
+    """out = _sub(a, b, q) (widened), written into `out`: a - b,
+    plus q where that is negative."""
+    torch.sub(a, b, out=out)
+    out.add_((out >> 63).bitwise_and_(q))
+
+
 def _neg(a, q):
     return torch.where(a == 0, a, q - a)
 

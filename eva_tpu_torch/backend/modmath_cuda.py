@@ -190,14 +190,14 @@ def _check_operand(t, device, name) -> None:
                          f"{t.stride(-1)}")
 
 
-def _check(name, ops, operands, prime_dim: int = -2, n_sub: int = None):
+def _check(name, ops, operands, n_sub: int = None):
     """Validate E1 operands against `ops` (n_sub of its primes, all by
-    default, along `prime_dim` of the output, a negative dim before the
-    last); returns the output shape."""
+    default, along the output's second-last dim); returns the output
+    shape."""
     for t in operands:
         _check_operand(t, ops.device, name)
     n_sub = len(ops.primes) if n_sub is None else n_sub
-    table = (n_sub,) + (1,) * (-prime_dim - 1)
+    table = (n_sub, 1)
     shapes = [tuple(t.shape) for t in operands]
     try:
         return tuple(torch.broadcast_shapes(*shapes, table))
@@ -211,7 +211,7 @@ def _aligned(tensors) -> bool:
     return all(t.data_ptr() % (4 * VEC) == 0 for t in tensors)
 
 
-def _ew_plan(name, op, ops, planes, prime_dim: int, multi: bool):
+def _ew_plan(name, op, ops, planes, multi: bool):
     """The launch of E1 `op` over `planes` (operand tuples), validated
     and worked out once per call signature (see _launch_ew): (output
     shapes, n, the non-empty planes, meta and dims for eva_mod_ew as
@@ -228,13 +228,13 @@ def _ew_plan(name, op, ops, planes, prime_dim: int, multi: bool):
             if n_sub > len(ops.primes):
                 raise ValueError(f"{name}: a plane of {n_sub} rows, the "
                                  f"table has {len(ops.primes)} primes")
-        shape = _check(name, ops, operands, prime_dim, n_sub)
+        shape = _check(name, ops, operands, n_sub)
         shapes.append(shape)
         if math.prod(shape) == 0:
             continue
         live.append(k)
         ndim, flat = _shape_spec(shape, operands)
-        meta += [ndim, shape[prime_dim], math.prod(shape[prime_dim + 1:-1])]
+        meta += [ndim, shape[-2]]
         dims += flat
         for j, t in enumerate(operands):
             if t.shape[-1] != 1:  # not a per-row constant
@@ -250,20 +250,18 @@ def _ew_plan(name, op, ops, planes, prime_dim: int, multi: bool):
             full)
 
 
-def _launch_ew(name, op, ops, planes, prime_dim: int = -2,
-               multi: bool = False):
+def _launch_ew(name, op, ops, planes, multi: bool = False):
     """One E1 launch of `op` over `planes` (operand tuples), all of one
     last dim; returns the outputs. The plan is cached by the call
     signature: every operand's shape, strides, dtype and device, the
-    primes' count, device and dim (the Python around a launch is most of
-    an eager call's cost)."""
-    key = (name, len(ops.primes), ops.device, prime_dim, multi, tuple(
+    primes' count and device (the Python around a launch is most of an
+    eager call's cost)."""
+    key = (name, len(ops.primes), ops.device, multi, tuple(
         tuple((t.shape, t.stride(), t.dtype, t.device) for t in operands)
         for operands in planes))
     plan = _PLANS.get(key)
     if plan is None:
-        plan = _PLANS[key] = _ew_plan(name, op, ops, planes, prime_dim,
-                                      multi)
+        plan = _PLANS[key] = _ew_plan(name, op, ops, planes, multi)
     shapes, n, live, meta, dims, vec, full = plan
     device = ops.device
     outs = [torch.empty(shape, dtype=torch.int32, device=device)
@@ -295,16 +293,10 @@ def _check_op(name, op, operands) -> None:
                          f"{OP_ARITY[op]}")
 
 
-def mod_ew(op: str, ops, *operands: torch.Tensor,
-           prime_dim: int = -2) -> torch.Tensor:
+def mod_ew(op: str, ops, *operands: torch.Tensor) -> torch.Tensor:
     """E1: the elementwise op `op` (see OP_CODES) of `operands` with the
-    primes of `ops` along the output's dim `prime_dim` (negative, before
-    the last)."""
-    name = f"CUDA mod_ew {op}"
-    if not prime_dim <= -2:
-        raise ValueError(f"{name}: prime_dim {prime_dim} is not before the "
-                         f"last dim")
-    return _launch_ew(name, op, ops, [operands], prime_dim)[0]
+    primes of `ops` along the output's second-last dim."""
+    return _launch_ew(f"CUDA mod_ew {op}", op, ops, [operands])[0]
 
 
 def mod_ew_multi(op: str, ops, planes) -> list:

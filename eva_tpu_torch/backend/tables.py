@@ -24,7 +24,7 @@ import torch
 from ..crypto.ntt import _bit_reverse_perm, get_table
 from . import modmath as M
 from . import resolve_device
-from .modmath import (_add, _shoup, _sub, mont_constants, mont_rinv,
+from .modmath import (_add_into, _sub_into, mont_constants, mont_rinv,
                       shoup_pair, upload, widen)
 
 # Calls of the plain NTT (a CPU tensor reached ntt/intt). A run on the
@@ -159,14 +159,14 @@ class DeviceLevelOps:
 
     # -- elementwise --------------------------------------------------------
 
-    def _ew(self, op: str, plain, *operands, prime_dim: int = -2):
+    def _ew(self, op: str, plain, *operands):
         """Elementwise op `op` (modmath_cuda.OP_CODES) on the operands,
-        the primes along the output's dim `prime_dim`: E1 on a CUDA tensor
+        the primes along the output's second-last dim: E1 on a CUDA tensor
         (strided operands read in place), `plain` on a CPU tensor,
         anything else raises."""
         if operands[0].is_cuda:
             from .modmath_cuda import mod_ew
-            return mod_ew(op, self, *operands, prime_dim=prime_dim)
+            return mod_ew(op, self, *operands)
         _check_operands(op, operands)
         return plain(*operands)
 
@@ -205,17 +205,11 @@ class DeviceLevelOps:
                                 if t is not None])
         return M.mont_mac(own, a, b, keys0, keys1, self.q, self.rinv)
 
-    def _q_at(self, prime_dim: int):
-        """q shaped [n_sub, 1, ...] for primes along dim `prime_dim`."""
-        return self.q.reshape((-1,) + (1,) * (-prime_dim - 1))
+    def add(self, a, b):
+        return self._ew("add", lambda a, b: M.add_mod(a, b, self.q), a, b)
 
-    def add(self, a, b, prime_dim: int = -2):
-        return self._ew("add", lambda a, b: M.add_mod(
-            a, b, self._q_at(prime_dim)), a, b, prime_dim=prime_dim)
-
-    def sub(self, a, b, prime_dim: int = -2):
-        return self._ew("sub", lambda a, b: M.sub_mod(
-            a, b, self._q_at(prime_dim)), a, b, prime_dim=prime_dim)
+    def sub(self, a, b):
+        return self._ew("sub", lambda a, b: M.sub_mod(a, b, self.q), a, b)
 
     def neg(self, a):
         return self._ew("neg", lambda a: M.neg_mod(a, self.q), a)
@@ -226,11 +220,11 @@ class DeviceLevelOps:
                         lambda a, b: M.mont_mul(a, b, self.q, self.rinv),
                         a, b_mont)
 
-    def mul_shoup(self, a, w, wp, prime_dim: int = -2):
+    def mul_shoup(self, a, w, wp):
         """a (any value below 2^32) * w by the Shoup pair (w, wp): w < q,
         wp = floor(w * 2^32 / q), broadcast like any operand."""
         return self._ew("shoup", lambda a, w, wp: M.shoup_mul(
-            a, w, wp, self._q_at(prime_dim)), a, w, wp, prime_dim=prime_dim)
+            a, w, wp, self.q), a, w, wp)
 
     def reduce(self, a):
         """a mod q (per row) for any a < 2^32: a Shoup multiply by 1."""
@@ -259,7 +253,9 @@ class DeviceLevelOps:
         return self._inv64(widen(x)).to(torch.int32)
 
     def _fwd64(self, x):
-        """_fwd_merged on widened (int64) planes."""
+        """_fwd_merged on widened (int64) planes. Each stage writes its
+        two halves into one new tensor, reducing in place (_add_into,
+        _sub_into): the same residues as _add / _sub, in fewer passes."""
         PLAIN_CALLS["ntt_fwd"] += 1
         wide = self._wide()
         lead = x.shape[:-1]
@@ -271,14 +267,17 @@ class DeviceLevelOps:
             ww = wide["mst_f"][:, m:2 * m][:, :, None]
             xr = x.reshape(*lead, m, 2 * t)
             lo = xr[..., :t]
-            hi = _shoup(xr[..., t:], ww, q3)
-            x = torch.cat((_add(lo, hi, q3), _sub(lo, hi, q3)),
-                          dim=-1).reshape(*lead, n)
+            hi = xr[..., t:] * ww
+            hi.remainder_(q3)                     # _shoup
+            out = xr.new_empty(xr.shape)
+            _add_into(out[..., :t], lo, hi, q3)
+            _sub_into(out[..., t:], lo, hi, q3)
+            x = out.reshape(*lead, n)
             m <<= 1
         return x
 
     def _inv64(self, x):
-        """_inv_merged on widened (int64) planes."""
+        """_inv_merged on widened (int64) planes (stages as _fwd64's)."""
         PLAIN_CALLS["ntt_inv"] += 1
         wide = self._wide()
         lead = x.shape[:-1]
@@ -290,11 +289,14 @@ class DeviceLevelOps:
             xr = x.reshape(*lead, m, 2 * t)
             lo = xr[..., :t]
             hi = xr[..., t:]
-            s = _add(lo, hi, q3)
+            out = xr.new_empty(xr.shape)
+            s, d = out[..., :t], out[..., t:]
+            _add_into(s, lo, hi, q3)
             if m == 1:  # fold N^-1 into the final stage's lo branch
-                s = _shoup(s, wide["ninv"][:, :, None], q3)
-            x = torch.cat((s, _shoup(_sub(lo, hi, q3), ww, q3)),
-                          dim=-1).reshape(*lead, n)
+                s.mul_(wide["ninv"][:, :, None]).remainder_(q3)
+            _sub_into(d, lo, hi, q3)
+            d.mul_(ww).remainder_(q3)             # _shoup
+            x = out.reshape(*lead, n)
             m >>= 1
             t <<= 1
         return x

@@ -38,10 +38,9 @@
 //
 // Layout: residues are uint32 words (int32 tensors carrying the uint32
 // bit pattern). An E1 output plane is a contiguous [..., n_sub, n] tensor;
-// row r of its flattened leading dims uses prime (r / inner) % n_sub of
-// the prime table (inner > 1 when the primes are an earlier dim, [...,
-// n_sub, a, .., n]: the four-step NTT of parallel/ntt_shard.py). The
-// planes of one multi launch share one table, of which each uses a prefix
+// row r of its flattened leading dims uses prime r % n_sub of the prime
+// table. The planes of one multi launch share one table, of which each
+// uses a prefix
 // (the data primes are a prefix of the extended basis). Each operand is
 // broadcast against its output by shape (size-1 dims) and may be strided:
 // the wrapper passes, for the output's leading dims (coalesced, at most
@@ -97,13 +96,12 @@ constexpr int kVec = 4;        // words a thread handles (16 bytes)
 
 // One output plane and its operands: the leading dims' sizes and each
 // operand's strides along them (words; 0 where it broadcasts), its stride
-// along the last dim, the number of primes, and the rows each prime's
-// index repeats for (1 when the primes are the second-last dim).
+// along the last dim, and the number of primes.
 struct Plane {
   const uint32_t* src[kOperands];
   uint32_t* out;
   long long rows;
-  int ndim, n_sub, inner;
+  int ndim, n_sub;
   int size[kMaxDims];
   long long stride[kOperands][kMaxDims];
   long long last[kOperands];
@@ -296,7 +294,7 @@ __device__ __forceinline__ void ew_row(const Planes& P,
   row -= P.first[k];
   long long off[kOperands];
   row_offsets(pl, row, off);
-  const int p = (int)(row / pl.inner % pl.n_sub);
+  const int p = (int)(row % pl.n_sub);
   wait_prior_grid();
   const uint32_t q = qs[p], nqinv = nqinvs[p];
   uint32_t* dst = pl.out + row * P.n;
@@ -539,13 +537,11 @@ dim3 grid(long long rows, int n) {
 // A Plane from its host description: dims[0 .. ndim) sizes, then for each
 // operand slot k its ndim strides at dims[ndim (1 + k) ..], then the
 // slots' last-dim strides. Returns false when it does not fit.
-bool make_plane(int ndim, int n_sub, int inner, const long long* dims,
-                Plane* pl) {
-  if (ndim < 0 || ndim > kMaxDims || n_sub <= 0 || inner <= 0) return false;
+bool make_plane(int ndim, int n_sub, const long long* dims, Plane* pl) {
+  if (ndim < 0 || ndim > kMaxDims || n_sub <= 0) return false;
   *pl = Plane{};
   pl->ndim = ndim;
   pl->n_sub = n_sub;
-  pl->inner = inner;
   pl->rows = 1;
   for (int d = 0; d < ndim; ++d) {
     if (dims[d] <= 0) return false;
@@ -556,7 +552,7 @@ bool make_plane(int ndim, int n_sub, int inner, const long long* dims,
   }
   for (int k = 0; k < kOperands; ++k)
     pl->last[k] = dims[ndim * (1 + kOperands) + k];
-  return pl->rows <= 0x7fffffffLL && pl->rows % ((long long)n_sub * inner) == 0;
+  return pl->rows <= 0x7fffffffLL && pl->rows % n_sub == 0;
 }
 
 // Launches `kernel` on `grid` x kThreads with programmatic stream
@@ -617,10 +613,10 @@ cudaError_t launch_div(bool vec, const Div& d, long long rows,
 extern "C" {
 
 // E1: out[k] = op(src[3k], src[3k + 1], src[3k + 2]) over plane k < count
-// (1: the single form; 2-4: the multi form), each described by meta[3k ..
-// 3k + 2] = (ndim, n_sub, inner) and its block of 4 ndim + 3 values in
-// dims (see make_plane), one after the other; all planes n words wide;
-// row r of plane k uses prime (r / inner) % n_sub of the tables q, nqinv.
+// (1: the single form; 2-4: the multi form), each described by meta[2k],
+// meta[2k + 1] = (ndim, n_sub) and its block of 4 ndim + 3 values in dims
+// (see make_plane), one after the other; all planes n words wide; row r
+// of plane k uses prime r % n_sub of the tables q, nqinv.
 // src entries an op does not read may be null. vec: every full-width
 // operand is 16-byte aligned with strides that are multiples of 4 words,
 // and n % 4 == 0 (4 words a thread). Returns the launch's cudaError_t.
@@ -636,8 +632,8 @@ int eva_mod_ew(int op, int count, const void* const* src, void* const* out,
   long long rows = 0;
   for (int k = 0; k < count; ++k) {
     Plane& pl = P.p[k];
-    const int ndim = meta[3 * k];
-    if (!make_plane(ndim, meta[3 * k + 1], meta[3 * k + 2], dims, &pl))
+    const int ndim = meta[2 * k];
+    if (!make_plane(ndim, meta[2 * k + 1], dims, &pl))
       return (int)cudaErrorInvalidValue;
     dims += 4 * ndim + kOperands;
     for (int j = 0; j < kOperands; ++j)
@@ -720,7 +716,7 @@ int eva_tensor_product(const void* a0, const void* a1, const void* b0,
                        int ndim, int n, int n_sub, const long long* dims,
                        void* stream) {
   Plane sh;
-  if (n <= 0 || !make_plane(ndim, n_sub, 1, dims, &sh))
+  if (n <= 0 || !make_plane(ndim, n_sub, dims, &sh))
     return (int)cudaErrorInvalidValue;
   return (int)launch(
       tensor_product_kernel, grid<1>(sh.rows, n), (cudaStream_t)stream,

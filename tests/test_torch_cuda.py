@@ -1,8 +1,9 @@
 """The CUDA kernels (eva_tpu_torch/csrc/ntt.cu: the NTT; csrc/ks.cu: the
 fused key switch's MAC and epilogue; csrc/modmath.cu: the elementwise
 modular ops E1 in their single, several-planes and MAC forms, the tensor
-product E2, the divide-last E3, the bench's rate probe E4) against their
-plain PyTorch versions, and their wrappers' refusals, on a CUDA GPU;
+product E2, the divide-last E3, the bench's rate probe E4; csrc/ntt_shard.cu:
+the sharded NTT's local phases K6, K7) against their plain PyTorch
+versions, and their wrappers' refusals, on a CUDA GPU;
 whole programs of tools/fuzz_cuda.py (random and from the reference's
 matrices) against the numpy backend and the plain versions; every test
 skips without one. Residues are int32 tensors of uint32 bits.
@@ -301,28 +302,6 @@ def test_cuda_mod_ew_matches_plain(cuda, op, n, lead, n_sub):
             assert torch.equal(got, want), (op, tuple(b.shape))
 
 
-def test_cuda_mod_ew_primes_along_an_earlier_dim(cuda):
-    """E1 with prime_dim -3 and -4 (the four-step NTT's [n_sub, a, b]
-    planes and its stage blocks), against the plain versions."""
-    n = 16384
-    dev = _ew_ops(n, 11, cuda)
-    x = _planes(1, dev.primes, (n,)).to(cuda).reshape(11, 128, 128)
-    y = _planes(2, dev.primes, (n,)).to(cuda).reshape(11, 128, 128)
-    q3, q4 = dev.q.reshape(11, 1, 1), dev.q.reshape(11, 1, 1, 1)
-    assert torch.equal(modmath_cuda.mod_ew("add", dev, x, y, prime_dim=-3),
-                       M.add_mod(x, y, q3))
-    xb, yb = x.reshape(11, 16, 8, 128), y.reshape(11, 16, 8, 128)
-    w = y[:, :1, :8].reshape(11, 1, 8, 1).contiguous()
-    wp = upload(np.stack([M.shoup_pair(M.to_host(w[i]), q)[1]
-                          for i, q in enumerate(dev.primes)]), cuda)
-    assert torch.equal(
-        modmath_cuda.mod_ew("sub", dev, xb, yb, prime_dim=-4),
-        M.sub_mod(xb, yb, q4))
-    assert torch.equal(
-        modmath_cuda.mod_ew("shoup", dev, xb, w, wp, prime_dim=-4),
-        M.shoup_mul(xb, w, wp, q4))
-
-
 @pytest.mark.parametrize("n,lead,n_sub", _EW_SHAPES)
 def test_cuda_tensor_product_matches_plain(cuda, n, lead, n_sub):
     """E2, bit for bit, also with the b-side broadcast over the batch."""
@@ -585,6 +564,87 @@ def test_cuda_modmath_wrappers_reject_what_the_kernels_do_not_take(cuda):
         dev.add(x.to(torch.int64), x)
     dev.add(x, x)
     assert M.PLAIN_CALLS == plain
+
+
+# -- the sharded NTT's local phases (K6, K7: csrc/ntt_shard.cu) -------------
+
+# (N, shards D, leading shape, primes): the CPU test's rings and shard
+# counts (test_torch_ntt_shard.py), Sobel's seq batch [4, 11, 16384] at
+# one shard, and N = 32768 (n1 = 256).
+_SHARD_CASES = ([(n, d, (2,), 3) for n in (1024, 4096, 16384)
+                 for d in (1, 2, 4)]
+                + [(16384, 1, (4,), 11), (16384, 2, (4,), 11),
+                   (32768, 2, (1,), 13)])
+_SHARD_KERNEL = {"fwd_cols": "ntt_shard_fwd", "fwd_rows": "ntt_shard_fwd",
+                 "inv_rows": "ntt_shard_inv", "inv_cols": "ntt_shard_inv"}
+
+
+def _shard_inputs(n, d, lead, n_sub, rank, cuda):
+    """ShardPhases of rank `rank` of d on the card and a random input of
+    each phase's shape."""
+    from eva_tpu_torch.parallel.ntt_shard import ShardPhases
+    primes = [q for e in build_chain(_SOBEL_BITS, n) for q in e.primes]
+    ph = ShardPhases(primes[:n_sub], n, d, rank, cuda)
+    n1, n2 = ph.n1, ph.n2
+    shapes = {"fwd_cols": (n1, n2 // d), "fwd_rows": (n1 // d, n2),
+              "inv_rows": (n1 // d, n2), "inv_cols": (n2 // d, n1)}
+    return ph, {name: _planes(n + d + rank + i, ph.primes,
+                              lead + (a * b,)).reshape(
+                                  lead + (n_sub, a, b)).to(cuda)
+                for i, (name, (a, b)) in enumerate(shapes.items())}
+
+
+@pytest.mark.parametrize("n,d,lead,n_sub", _SHARD_CASES)
+def test_cuda_ntt_shard_phases_match_plain(cuda, n, d, lead, n_sub):
+    """Each phase on the first and the last rank, bit for bit against its
+    plain version on the same card tensors, one launch of its kernel."""
+    from eva_tpu_torch.backend import ntt_shard_cuda
+    from eva_tpu_torch.parallel import ntt_shard
+    for rank in sorted({0, d - 1}):
+        ph, inputs = _shard_inputs(n, d, lead, n_sub, rank, cuda)
+        for name, x in inputs.items():
+            before = dict(ntt_shard_cuda.LAUNCHES)
+            got = getattr(ph, name)(x)
+            after = dict(ntt_shard_cuda.LAUNCHES)
+            plain = dict(ntt_shard.PLAIN_CALLS)
+            want = getattr(ph, "plain_" + name)(x)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.int32 and got.is_contiguous()
+            assert torch.equal(got, want), (name, rank)
+            assert {k: after[k] - before[k] for k in after} == {
+                k: int(k == _SHARD_KERNEL[name]) for k in after}
+            assert ntt_shard.PLAIN_CALLS[_SHARD_KERNEL[name]] == \
+                plain[_SHARD_KERNEL[name]] + 1
+
+
+def test_cuda_ntt_shard_kernels_fit_the_card(cuda):
+    """No form of K6/K7 spills, and an SM holds eight blocks of 256
+    threads of each in registers."""
+    from eva_tpu_torch.backend import ntt_shard_cuda
+    info = ntt_shard_cuda.kernel_info(cuda)
+    assert set(info) == set(ntt_shard_cuda.FORMS)
+    for form, res in info.items():
+        assert res["local_bytes"] == 0, (form, res)
+        assert res["registers"] * 256 * 8 <= 65536, (form, res)
+
+
+def test_cuda_ntt_shard_refuses_what_the_kernels_do_not_take(cuda):
+    """A CUDA tensor goes through K6/K7 or raises: wrong shape, type,
+    layout or device, and no plain call."""
+    from eva_tpu_torch.parallel import ntt_shard
+    ph, inputs = _shard_inputs(1024, 2, (2,), 3, 0, cuda)
+    x = inputs["fwd_cols"]
+    plain = dict(ntt_shard.PLAIN_CALLS)
+    with pytest.raises(ValueError, match="does not end in"):
+        ph.fwd_rows(x)
+    with pytest.raises(ValueError, match="int32"):
+        ph.fwd_cols(x.to(torch.int64))
+    with pytest.raises(ValueError, match="contiguous"):
+        ph.inv_cols(inputs["fwd_cols"].transpose(-1, -2))
+    cpu_ph = ntt_shard.ShardPhases(ph.primes, 1024, 2, 0)
+    with pytest.raises(ValueError, match="tables on"):
+        cpu_ph.fwd_cols(x)
+    assert ntt_shard.PLAIN_CALLS == plain
 
 
 # -- whole programs through captured CUDA graphs ------------------------------
@@ -869,7 +929,12 @@ def test_cuda_sharded_ntt_one_shard_equals_ntt(nccl_world):
               for q in e.primes][:11]
     x = _planes(11, primes, (n,)).to(nccl_world)
     sntt = get_sharded_ntt(tuple(primes), n, dist.group.WORLD, nccl_world)
+    from eva_tpu_torch.backend import ntt_shard_cuda
+    before = dict(ntt_shard_cuda.LAUNCHES)
     got = sntt.ntt(x.reshape(11, sntt.n1, sntt.n2)).reshape(11, n)
     assert torch.equal(got, DeviceLevelOps(primes, n, nccl_world).ntt(x))
     back = sntt.intt(got.reshape(11, sntt.n1, sntt.n2)).reshape(11, n)
     assert torch.equal(back, x)
+    # Two launches a transform: K6 twice forward, K7 twice inverse.
+    assert {k: v - before[k] for k, v in ntt_shard_cuda.LAUNCHES.items()} \
+        == {"ntt_shard_fwd": 2, "ntt_shard_inv": 2}

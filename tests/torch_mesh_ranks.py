@@ -2,7 +2,8 @@
 (tests/test_torch_parallel.py, tests/test_torch_mesh.py,
 tests/test_torch_mesh_plans.py).
 
-`run_world(world, cases)` starts `world` processes of this file, each one
+`run_world(world, cases)` starts `world` processes, forked from a
+forkserver that has torch and eva_tpu_torch imported, each one
 gloo rank of a torch.distributed world on one CPU thread, rendezvousing
 through a file store in a temporary directory. Every rank runs every case
 (in order, each a dict with a "kind" naming a function of CASES) and
@@ -23,7 +24,6 @@ from __future__ import annotations
 import contextlib
 import os
 import pickle
-import subprocess
 import sys
 import tempfile
 
@@ -480,31 +480,60 @@ CASES = {"mesh": case_mesh, "collectives": case_collectives,
          "capture_keys": case_capture_keys, "host_reads": case_host_reads}
 
 
+# Modules every rank imports, loaded once by the forkserver the ranks are
+# forked from (multiprocessing's "forkserver" context, started once per
+# test process): a rank then costs a fork, not a fresh interpreter's
+# ~4 s of CPU importing torch. The forkserver is a fresh interpreter, so a
+# rank's modules are still only what it imports itself, and it runs one
+# thread after these imports, so forking it is safe.
+PRELOAD = ["numpy", "torch", "torch.distributed", "eva_tpu_torch.parallel",
+           "eva_tpu_torch.runtime"]
+
+
+def _forkserver():
+    """The forkserver context, its server started with one intra-op
+    thread (OMP_NUM_THREADS=1, for the ranks) and PRELOAD imported."""
+    import multiprocessing
+    from multiprocessing import forkserver
+    ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(PRELOAD)
+    saved = os.environ.get("OMP_NUM_THREADS")
+    os.environ["OMP_NUM_THREADS"] = "1"
+    try:
+        forkserver.ensure_running()
+    finally:
+        if saved is None:
+            del os.environ["OMP_NUM_THREADS"]
+        else:
+            os.environ["OMP_NUM_THREADS"] = saved
+    return ctx
+
+
 def run_world(world: int, cases, timeout: float = 180.0):
     """Run `cases` on `world` gloo ranks; returns [rank results], each a
     {"results": [per case], "modules": imported jax/eva_tpu modules}."""
+    ctx = _forkserver()
     with tempfile.TemporaryDirectory() as tmp:
         with open(os.path.join(tmp, "cases.pkl"), "wb") as fh:
             pickle.dump(cases, fh)
-        env = dict(os.environ, OMP_NUM_THREADS="1",
-                   PYTHONPATH=ROOT + os.pathsep
-                   + os.environ.get("PYTHONPATH", ""))
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), tmp, str(r),
-             str(world)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True) for r in range(world)]
-        logs = []
+        procs = [ctx.Process(target=_rank_entry, args=(tmp, r, world))
+                 for r in range(world)]
         try:
             for p in procs:
-                logs.append(p.communicate(timeout=timeout)[0])
+                p.start()
+            for p in procs:
+                p.join(timeout)
         finally:
             for p in procs:
-                if p.poll() is None:
+                if p.is_alive():
                     p.kill()
-                    p.wait()
-        bad = [(r, p.returncode) for r, p in enumerate(procs)
-               if p.returncode]
+                    p.join()
+        bad = [(r, p.exitcode) for r, p in enumerate(procs) if p.exitcode]
         if bad:
+            logs = []
+            for r in range(world):
+                with open(os.path.join(tmp, f"log{r}.txt")) as fh:
+                    logs.append(fh.read())
             raise RuntimeError(f"ranks failed {bad}:\n"
                                + "\n".join(logs)[-6000:])
         out = []
@@ -512,6 +541,14 @@ def run_world(world: int, cases, timeout: float = 180.0):
             with open(os.path.join(tmp, f"out{r}.pkl"), "rb") as fh:
                 out.append(pickle.load(fh))
         return out
+
+
+def _rank_entry(tmp: str, rank: int, world: int) -> None:
+    """A forked rank: its output to tmp/log<rank>.txt, then _rank_main."""
+    with open(os.path.join(tmp, f"log{rank}.txt"), "w") as log:
+        os.dup2(log.fileno(), 1)
+        os.dup2(log.fileno(), 2)
+    _rank_main(tmp, rank, world)
 
 
 def _rank_main(tmp: str, rank: int, world: int) -> None:
@@ -532,7 +569,3 @@ def _rank_main(tmp: str, rank: int, world: int) -> None:
                      if m.split(".")[0] in ("jax", "eva_tpu"))
     with open(os.path.join(tmp, f"out{rank}.pkl"), "wb") as fh:
         pickle.dump({"results": results, "modules": modules}, fh)
-
-
-if __name__ == "__main__":
-    _rank_main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))
