@@ -1372,8 +1372,10 @@ MODMATH_KERNELS = ("mod_ew_kernel", "mod_ew_multi_kernel",
 def profile_execute(name, pub, compiled, enc, top: int = 10):
     """Device time by kernel for one warm execute (torch.profiler): a dict
     of device ms, NTT and key-switch kernel ms, wall ms under the
-    profiler and device op count (None when the profiler recorded no
-    device time); prints the `top` entries."""
+    profiler, device op count, and the host ms of each of the program's
+    spans (eva_tpu_torch/tracing.py; a span's time includes its
+    children's), or None when the profiler recorded no device time;
+    prints the `top` entries."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1408,7 +1410,11 @@ def profile_execute(name, pub, compiled, enc, top: int = 10):
             "kernel_launches": {k: sum(r[1] for r in rows if k in r[2])
                                 for k in NTT_KERNELS + KS_KERNELS
                                 + MODMATH_KERNELS},
-            "wall_ms": wall, "device_ops": sum(r[1] for r in rows)}
+            "wall_ms": wall, "device_ops": sum(r[1] for r in rows),
+            "span_ms": {e.key: e.cpu_time_total / 1e3
+                        for e in prof.key_averages()
+                        if e.key.startswith("eva.")
+                        and e.device_type != torch.autograd.DeviceType.CUDA}}
 
 
 def check_replay_launches(name, prof, launches):
@@ -1436,8 +1442,8 @@ def check_replay_launches(name, prof, launches):
 def replay_phase(name, pub, compiled, enc, ref_out, reps=5):
     """One program's captured graph: a replay's output against the numpy
     backend, its launch counters against the capture's counts, its wall
-    median, its profile (kernel launches by name against the capture's
-    counts), and the host time of one replayed execute by step."""
+    median, and its profile (kernel launches by name against the
+    capture's counts; the host time of each of its eva. spans)."""
     entry = captured_entry(pub, compiled, [enc])
     check_int32(f"{name} captured graph", entry.out)
     reset_counts()
@@ -1457,45 +1463,7 @@ def replay_phase(name, pub, compiled, enc, ref_out, reps=5):
             "profile": prof, "idle_share": 1 - prof["device_ms"] / wall,
             "capture_s": entry.capture_s,
             "graph_pool_bytes": entry.pool_bytes,
-            "launches_per_execute": entry.launches,
-            "host_ms": host_steps(pub, compiled, enc, reps)}
-
-
-def host_steps(pub, compiled, enc, reps):
-    """Medians over `reps` replayed executes of each step's ms on the
-    host: the host planner (`_host_phase`: raw values, encode-cache
-    look-ups), splitting the valuation into host arrays (`_split`) and
-    finding its graph, staging the inputs into the graph's static
-    tensors (`fill`), launching the graph (`replay`), enqueueing the
-    output copies, waiting for the device, and building the host
-    ciphertexts (`_result`)."""
-    import torch
-    from eva_tpu_torch.backend.executor_torch import _copy_out
-    ex = pub._executor_for(compiled)
-    tp = ex._get_torch_program()
-    steps = {k: [] for k in ("host_phase", "split", "fill", "replay",
-                             "enqueue_out", "device_wait", "result")}
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t = [time.perf_counter()]
-        hv = ex._host_phase(enc)[0]
-        t.append(time.perf_counter())
-        parts = tp._split([hv], False)
-        entry = tp._captured[tp._capture_key(*parts)]
-        t.append(time.perf_counter())
-        entry.fill(*parts[:2])
-        t.append(time.perf_counter())
-        entry.replay()
-        t.append(time.perf_counter())
-        host, done = _copy_out(entry.out)
-        t.append(time.perf_counter())
-        done.synchronize()
-        t.append(time.perf_counter())
-        tp._result(host)
-        t.append(time.perf_counter())
-        for k, a, b in zip(steps, t, t[1:]):
-            steps[k].append((b - a) * 1e3)
-    return {k: statistics.median(v) for k, v in steps.items()}
+            "launches_per_execute": entry.launches}
 
 
 def capture_phase(name, pub, compiled, enc, ref_out, reps=5):
@@ -2470,7 +2438,7 @@ def main() -> int:
                          "idle_share": cap["idle_share"],
                          "capture_s": cap["capture_s"],
                          "graph_pool_bytes": cap["graph_pool_bytes"],
-                         "host_ms": cap["host_ms"]},
+                         "span_ms": cap["profile"]["span_ms"]},
             "eager": {"execute_ms_median":
                       cap["eager"]["execute_ms_median"],
                       "device_ms": cap["eager"]["profile"]["device_ms"],

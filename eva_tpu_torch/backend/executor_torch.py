@@ -72,6 +72,7 @@ from ..crypto.ciphertext import Ciphertext, Plaintext
 from ..crypto.context import CKKSContext
 from ..ir import ROTATION, Op, Program, Term, Type
 from ..passes import rotation_hoist_sources
+from ..tracing import span
 from . import (ks_cuda, modmath_cuda, ntt_cuda, ntt_shard_cuda,
                resolve_device)
 from .modmath import to_host, to_mont, to_mont_rows as _to_mont_rows, upload
@@ -1585,21 +1586,25 @@ class TorchProgram:
             tuple(sorted((k, id(pt)) for k, pt in consts.items())),
             self._fused_ks_ok())
 
-    def _replay(self, cipher, plain, consts):
-        """Run valuations (see _split) through their captured graph,
-        capturing it on the key's first call: the inputs are copied into
+    def _replay(self, host_values_list, batched: bool):
+        """Run valuations through their captured graph, capturing it on
+        the key's first call: their host arrays (_split) are copied into
         the graph's static tensors, the graph replayed, and the static
         outputs copied into pinned host memory, all enqueued on the
         current stream. Returns (host outputs, CUDA event of their
         end). A capture or replay that fails raises."""
-        return _copy_out(self._replay_dev(cipher, plain, consts))
+        with span("eva.stage"):
+            entry = self._staged(*self._split(host_values_list, batched))
+        entry.replay()
+        return _copy_out(entry.out)
 
-    def _replay_dev(self, cipher, plain, consts, sharded=None):
-        """_replay up to the replay: returns the graph's static output
-        tensors, which the next replay of the same key rewrites. With
-        `sharded` (a _sharded entry whose run is not None), the mesh
-        program of that plan: its own graph, keyed by the mesh and the
-        plan name as well."""
+    def _staged(self, cipher, plain, consts, sharded=None) -> "_Captured":
+        """The captured graph of host arrays (see _split), with them
+        copied into its static input tensors, captured on the key's
+        first call; its static output tensors (.out) are what the next
+        replay writes. With `sharded` (a _sharded entry whose run is not
+        None), the mesh program of that plan: its own graph, keyed by
+        the mesh and the plan name as well."""
         key = self._capture_key(cipher, plain, consts)
         mesh = None
         if sharded is not None:
@@ -1611,8 +1616,7 @@ class TorchProgram:
                 cipher, plain, consts, sharded)
         else:
             entry.fill(cipher, plain)
-        entry.replay()
-        return entry.out
+        return entry
 
     def _dev_inputs(self, cipher, plain, consts, seq=None):
         """Host arrays (see _split) as device inputs of `_traced`; with a
@@ -1633,7 +1637,7 @@ class TorchProgram:
     def _capture_graph(self, cipher, plain, consts,
                        sharded=None) -> "_Captured":
         """Capture `_traced` for one input key, or with `sharded` (see
-        _replay_dev) the mesh program of its plan: static input tensors
+        _staged) the mesh program of its plan: static input tensors
         (with a seq group, of this rank's ring slice), filled with this
         request's inputs; one eager warm-up on a side stream, which
         builds every lazy table, constant, kernel library and key
@@ -1654,7 +1658,7 @@ class TorchProgram:
             return a if seq is None else seq_slice(a, seq)
 
         device = self.device
-        with torch.cuda.device(device):
+        with span("eva.capture"), torch.cuda.device(device):
             entry = _Captured(
                 {k: [torch.empty(cut(a).shape, dtype=torch.int32,
                                  device=device)
@@ -1700,18 +1704,19 @@ class TorchProgram:
         constants alone, serves every element)."""
         plane_dims = 2 if self.k == 1 else 3
         result = {}
-        for name, t in self.program.outputs.items():
-            if self.types[t] == Type.Raw:
-                continue
-            planes = [to_host(c) for c in out[name]]
-            if b is not None:
-                planes = [pl[b] if pl.ndim > plane_dims else pl
-                          for pl in planes]
-            p = self.plan[t.index]
-            if self.types[t] == Type.Plain:
-                result[name] = Plaintext(planes[0], p.level, p.scale)
-            else:
-                result[name] = Ciphertext(planes, p.level, p.scale)
+        with span("eva.result"):
+            for name, t in self.program.outputs.items():
+                if self.types[t] == Type.Raw:
+                    continue
+                planes = [to_host(c) for c in out[name]]
+                if b is not None:
+                    planes = [pl[b] if pl.ndim > plane_dims else pl
+                              for pl in planes]
+                p = self.plan[t.index]
+                if self.types[t] == Type.Plain:
+                    result[name] = Plaintext(planes[0], p.level, p.scale)
+                else:
+                    result[name] = Ciphertext(planes, p.level, p.scale)
         return result
 
     def run(self, host_values: Dict[int, object]) -> Dict[str, Ciphertext]:
@@ -1719,8 +1724,9 @@ class TorchProgram:
         (inputs + encodes, already host-encoded). Returns output name ->
         Ciphertext (numpy, uint64)."""
         if self._captures():
-            host, done = self._replay(*self._split([host_values], False))
-            done.synchronize()
+            host, done = self._replay([host_values], False)
+            with span("eva.wait"):
+                done.synchronize()
             return self._result(host)
         out = self._traced(*self._inputs(host_values))
         return self._result({name: [c.cpu() for c in planes]
@@ -1750,12 +1756,13 @@ class TorchProgram:
             return []
         if mesh is not None:
             return self._run_mesh(host_values_list, mesh)
-        cipher, plain, consts = self._split(host_values_list, True)
         if self._captures():
-            host, done = self._replay(cipher, plain, consts)
-            done.synchronize()
+            host, done = self._replay(host_values_list, True)
+            with span("eva.wait"):
+                done.synchronize()
         else:
-            out = self._traced(*self._dev_inputs(cipher, plain, consts))
+            out = self._traced(*self._dev_inputs(
+                *self._split(host_values_list, True)))
             host = {name: [c.cpu() for c in planes]
                     for name, planes in out.items()}
         return [self._result(host, b) for b in range(batch)]
@@ -1766,7 +1773,7 @@ class TorchProgram:
         hlimb) and its ring slice (seq); runs the program of its plan
         (_sharded: the single-device program on the local batch, or the
         digit-parallel / seq program), on the card through the plan's
-        captured graph (_replay_dev), on the CPU eagerly; then
+        captured graph (_staged), on the CPU eagerly; then
         all-gathers the outputs over the ring axis's group and over the
         batch axes, eagerly. Plaintexts that are the same object in
         every element of the whole list serve every rank unstacked, as
@@ -1787,13 +1794,17 @@ class TorchProgram:
         shared = {idx for idx, v in padded[0].items()
                   if isinstance(v, Plaintext)
                   and all(hv[idx] is v for hv in padded)}
-        cipher, plain, consts = self._split(
-            padded[shard * loc:(shard + 1) * loc], True, shared)
-        sharded = self._sharded(mesh, cipher, plain, consts)
-        _, _, run, seq = sharded
+        with span("eva.stage"):
+            cipher, plain, consts = self._split(
+                padded[shard * loc:(shard + 1) * loc], True, shared)
+            sharded = self._sharded(mesh, cipher, plain, consts)
+            _, _, run, seq = sharded
+            if self._captures():
+                entry = self._staged(cipher, plain, consts,
+                                     None if run is None else sharded)
         if self._captures():
-            out = self._replay_dev(cipher, plain, consts,
-                                   None if run is None else sharded)
+            entry.replay()
+            out = entry.out
         else:
             inputs = self._dev_inputs(cipher, plain, consts, seq)
             out = (run or self._traced)(*inputs)
@@ -1833,14 +1844,15 @@ class TorchProgram:
 
         def dispatch(host_values):
             if self._captures():
-                return self._replay(*self._split([host_values], False))
+                return self._replay([host_values], False)
             out = self._traced(*self._inputs(host_values))
             return _copy_out(out) if on_cuda else (out, None)
 
         def collect(item):
             host, done = item
             if done is not None:
-                done.synchronize()
+                with span("eva.wait"):
+                    done.synchronize()
             return self._result(host)
 
         for hv in host_values_iter:
@@ -1863,11 +1875,12 @@ def _copy_out(out):
     """Enqueue non-blocking copies of device outputs {name: planes} into
     pinned host memory on the current stream; returns (host outputs,
     CUDA event recorded after the copies)."""
-    host = {name: [torch.empty(c.shape, dtype=c.dtype,
-                               pin_memory=True).copy_(c, non_blocking=True)
-                   for c in planes] for name, planes in out.items()}
-    done = torch.cuda.Event()
-    done.record()
+    with span("eva.copy_out"):
+        host = {name: [torch.empty(c.shape, dtype=c.dtype, pin_memory=True)
+                       .copy_(c, non_blocking=True) for c in planes]
+                for name, planes in out.items()}
+        done = torch.cuda.Event()
+        done.record()
     return host, done
 
 
@@ -1976,8 +1989,9 @@ class _Captured:
     def replay(self) -> None:
         """Launch the graph on the current stream, and add its kernel
         launches to the wrappers' counters."""
-        self.graph.replay()
-        for name, c in _counters().items():
-            for k, v in self.launches[name].items():
-                c[k] = (max(c[k], v) if name == "ks_max_batch"
-                        else c[k] + v)
+        with span("eva.launch"):
+            self.graph.replay()
+            for name, c in _counters().items():
+                for k, v in self.launches[name].items():
+                    c[k] = (max(c[k], v) if name == "ks_max_batch"
+                            else c[k] + v)

@@ -21,6 +21,7 @@ from ..ir import Type
 from ..crypto import keys as _keys
 from ..crypto.ciphertext import Ciphertext, Plaintext
 from ..crypto.context import CKKSContext, get_context
+from ..tracing import span
 from .executor import Executor
 
 __all__ = ["generate_keys", "EVAPublic", "EVASecret", "EVAValuation"]
@@ -138,9 +139,10 @@ class EVAPublic:
         return executor
 
     def execute(self, program, inputs: EVAValuation) -> EVAValuation:
-        _check_params(self.params, inputs, "EVAPublic.execute")
-        outputs = self._executor_for(program).run(inputs)
-        return EVAValuation(self.params, outputs)
+        with span("eva.execute"):
+            _check_params(self.params, inputs, "EVAPublic.execute")
+            outputs = self._executor_for(program).run(inputs)
+            return EVAValuation(self.params, outputs)
 
     def execute_batch(self, program, inputs_list, mesh=None):
         """Execute one compiled program over a batch of valuations in one
@@ -152,10 +154,12 @@ class EVAPublic:
         make_device_mesh, one process per device), every rank calls with
         the same list, runs its shard (batch slice, key-switch digits,
         ring slice) and returns every valuation."""
-        for v in inputs_list:
-            _check_params(self.params, v, "EVAPublic.execute_batch")
-        results = self._executor_for(program).run_batch(inputs_list, mesh=mesh)
-        return [EVAValuation(self.params, r) for r in results]
+        with span("eva.execute_batch"):
+            for v in inputs_list:
+                _check_params(self.params, v, "EVAPublic.execute_batch")
+            results = self._executor_for(program).run_batch(inputs_list,
+                                                            mesh=mesh)
+            return [EVAValuation(self.params, r) for r in results]
 
     def release_mesh(self, mesh) -> None:
         """Free what this context's programs hold for `mesh`: their

@@ -28,6 +28,7 @@ from ..crypto.context import CKKSContext
 from ..ir import (CONSTANT_VALUE, ENCODE_AT_LEVEL, ENCODE_AT_SCALE, ROTATION,
                   Op, Program, Term, TermMap, Type)
 from ..passes import TypeDeducer, rotation_hoist_sources
+from ..tracing import span
 from ..traversal import ProgramTraversal
 
 
@@ -431,56 +432,59 @@ class Executor:
     def _host_phase(self, inputs: Dict):
         """Compute Raw subgraphs and plaintext encodes on host; returns
         (host_values for the device program, raw term values)."""
-        ctx = self.ctx
-        vec_size = self.program.vec_size
-        host_values: Dict[int, object] = {}
-        raw_vals: Dict[int, object] = {}
-        needed = self._raw_terms_needed()
+        with span("eva.host_phase"):
+            ctx = self.ctx
+            vec_size = self.program.vec_size
+            host_values: Dict[int, object] = {}
+            raw_vals: Dict[int, object] = {}
+            needed = self._raw_terms_needed()
 
-        for name, term in self.program.inputs.items():
-            if name not in inputs:
-                raise RuntimeError(f"Missing input {name}")
-            v = inputs[name]
-            if isinstance(v, Ciphertext):
-                p = self.plan[term.index]
-                while v.level < p.level:
-                    v = O.mod_switch(ctx, v)
-                host_values[term.index] = v
-            elif isinstance(v, Plaintext):
-                host_values[term.index] = v
-            else:
-                raw_vals[term.index] = np.asarray(v, dtype=np.float64)
+            for name, term in self.program.inputs.items():
+                if name not in inputs:
+                    raise RuntimeError(f"Missing input {name}")
+                v = inputs[name]
+                if isinstance(v, Ciphertext):
+                    p = self.plan[term.index]
+                    while v.level < p.level:
+                        v = O.mod_switch(ctx, v)
+                    host_values[term.index] = v
+                elif isinstance(v, Plaintext):
+                    host_values[term.index] = v
+                else:
+                    raw_vals[term.index] = np.asarray(v, dtype=np.float64)
 
-        for term in self.order:
-            if term.op == Op.Input:
-                continue
-            if ((self.types[term] == Type.Raw or term.op == Op.Constant)
-                    and term.index not in needed):
-                continue  # feeds only cached encodes
-            if self.types[term] == Type.Raw:
-                raw_vals[term.index] = self._raw_op(term, raw_vals, vec_size)
-            elif term.op == Op.Constant:
-                raw_vals[term.index] = np.asarray(
-                    term.get_attr(CONSTANT_VALUE).expand(vec_size))
-            elif term.op == Op.Encode:
-                # Constant-only encodes are identical across executions and
-                # batch elements; cache them (host FFT encode is the slow
-                # host-side step).
-                if term.index in self._encode_cache:
-                    host_values[term.index] = self._encode_cache[term.index]
+            for term in self.order:
+                if term.op == Op.Input:
                     continue
-                p = self.plan[term.index]
-                raw = np.asarray(raw_vals[term.operands[0].index],
-                                 dtype=np.float64)
-                pt = K.encode(ctx, raw, p.scale, p.level,
-                              ext_primes=(ctx.key_primes
-                                          if term.index in self._ext_encodes
-                                          else None))
-                host_values[term.index] = pt
-                if self._is_input_free(term):
-                    self._encode_cache[term.index] = pt
+                if ((self.types[term] == Type.Raw
+                     or term.op == Op.Constant)
+                        and term.index not in needed):
+                    continue  # feeds only cached encodes
+                if self.types[term] == Type.Raw:
+                    raw_vals[term.index] = self._raw_op(term, raw_vals,
+                                                        vec_size)
+                elif term.op == Op.Constant:
+                    raw_vals[term.index] = np.asarray(
+                        term.get_attr(CONSTANT_VALUE).expand(vec_size))
+                elif term.op == Op.Encode:
+                    # Constant-only encodes are identical across executions
+                    # and batch elements; cache them (host FFT encode is the
+                    # slow host-side step).
+                    if term.index in self._encode_cache:
+                        host_values[term.index] = \
+                            self._encode_cache[term.index]
+                        continue
+                    p = self.plan[term.index]
+                    raw = np.asarray(raw_vals[term.operands[0].index],
+                                     dtype=np.float64)
+                    ext = term.index in self._ext_encodes
+                    pt = K.encode(ctx, raw, p.scale, p.level,
+                                  ext_primes=ctx.key_primes if ext else None)
+                    host_values[term.index] = pt
+                    if self._is_input_free(term):
+                        self._encode_cache[term.index] = pt
 
-        return host_values, raw_vals
+            return host_values, raw_vals
 
     def _run_torch(self, inputs: Dict) -> Dict:
         """Host-compute Raw subgraphs and plaintext encodes, then hand the

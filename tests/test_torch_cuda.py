@@ -743,6 +743,39 @@ def test_cuda_captured_graph_refuses_a_wrong_input_shape(card_program):
                    plain)
 
 
+def test_cuda_replayed_execute_shows_each_host_span_once(card_program):
+    """Under torch.profiler a replayed execute shows each host step of
+    the card's path once (eva_tpu_torch/tracing.py), and no capture; a
+    batch size no graph was captured for shows one eva.capture."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from eva_tpu_torch.tracing import SPANS
+
+    pub, compiled, encs, refs = card_program
+    pub.execute(compiled, encs[0])
+
+    def spans(call):
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            out = call()
+        return out, Counter(e.name for e in prof.events()
+                            if e.is_user_annotation
+                            and e.name.startswith("eva."))
+
+    out, seen = spans(lambda: pub.execute(compiled, encs[1]))
+    _same(refs[1], out)
+    assert seen == Counter(["eva.execute", "eva.host_phase", "eva.stage",
+                            "eva.launch", "eva.copy_out", "eva.wait",
+                            "eva.result"])
+    out, seen = spans(lambda: pub.execute_batch(compiled, encs[:3]))
+    for r, o in zip(refs, out):
+        _same(r, o)
+    assert set(seen) <= set(SPANS)
+    assert seen["eva.capture"] == 1 and seen["eva.stage"] == 1
+    assert seen["eva.host_phase"] == seen["eva.result"] == 3
+
+
 # -- key generation on the card -----------------------------------------------
 
 
