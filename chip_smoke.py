@@ -41,7 +41,9 @@ Phases (any failure exits non-zero and prints no result line):
      structured key switch's inner product) at MAC_SHAPES (Sobel's and
      Harris's hoisted rotations at B = 1 and 4, alpha 1, one digit group,
      strided digits); E3 (every prime and polynomial of a rescale in one
-     launch, with an addend) at E3_SHAPES; E1 reading a strided
+     launch, with an addend) at E3_SHAPES; the Galois automorphism
+     (galois_perm: a hoisted rotation's c0 and two accumulators in one
+     launch) against index_select at EW_SHAPES; E1 reading a strided
      operand in place (one device operation, the kernel: no copy); and
      E4 (modmul_burn: 16 dependent Montgomery multiplies a word,
      bench_torch.py's modular-multiply rate probe) at BURN_SHAPES. The
@@ -69,7 +71,7 @@ Phases (any failure exits non-zero and prints no result line):
      decryption must match the plaintext reference, every output plane
      of the graph must be int32, and every kernel of the path must have
      been launched (K1, K2, K4, K5, E1 in each of its three forms, E2,
-     E3: launch counts > 0;
+     E3, galois_perm: launch counts > 0;
      plain-version calls of every kernel, modmath's included, == 0; a
      replay adds the launches its capture counted; keygen: one K1 and
      five E1 launches per key).
@@ -632,7 +634,8 @@ def modmath_kernel_phase(device):
     second operand full, broadcast over the batch, and a per-row
     constant; an unreduced first operand for the multiplies; a strided
     first operand), its several-planes form (mul, add, sub, neg at a
-    rotation sum's shapes) and E2 at EW_SHAPES; E1's MAC form
+    rotation sum's shapes), E2 and galois_perm (a hoisted rotation's c0 and
+    accumulators, against index_select) at EW_SHAPES; E1's MAC form
     (ew_mac_phase) and E3 (divide_phase); each against its plain version
     (torch.equal), timed at the main path's shapes by graph_ms beside its
     plain version and its bound; and E1's strided operands read in place
@@ -640,6 +643,7 @@ def modmath_kernel_phase(device):
     import torch
     from eva_tpu_torch.backend import modmath_cuda
     from eva_tpu_torch.backend import modmath as M
+    from eva_tpu_torch.backend.executor_torch import DevPerm
     from eva_tpu_torch.backend.modmath import upload
     from eva_tpu_torch.backend.tables import level_ops
     from eva_tpu_torch.crypto.context import get_context
@@ -647,7 +651,10 @@ def modmath_kernel_phase(device):
     print("kernels modmath resources "
           + json.dumps(modmath_cuda.kernel_info(device)), flush=True)
     n = 16384
-    primes = list(get_context(tuple(SOBEL_BITS), (), n, 1).all_primes)
+    ctx = get_context(tuple(SOBEL_BITS), (), n, 1)
+    primes = list(ctx.all_primes)
+    perm = DevPerm(ctx.perm_for_elt(ctx.galois_elt(1)), device)
+    index = perm.table.to(torch.int64)
     results = {}
 
     def record(key, label, kern, plain, operands, ops, timed):
@@ -746,6 +753,11 @@ def modmath_kernel_phase(device):
                    inputs, lambda got, op=op: sum(
                        t.numel() for t in got) * EW_OPS[op],
                    timed and op in ("mul", "add"))
+        record(("galois_perm",), label,
+               lambda: perm.planes(c0, acc0, acc1),
+               lambda: [torch.index_select(t, -1, index)
+                        for t in (c0, acc0, acc1)],
+               (c0, acc0, acc1, perm.table), 0, timed)
     results.update(ew_mac_phase(device))
     results.update(divide_phase(device))
     strided_in_place(device)
@@ -1108,7 +1120,7 @@ def check_keygen_counts(name, counts, n_keys: int):
     key-switching key, no other kernel and no plain version."""
     want = {"ntt_fwd": n_keys, "ntt_inv": 0}
     want_ew = {"mod_ew": 5 * n_keys, "mod_ew_multi": 0, "mod_ew_mac": 0,
-               "tensor_product": 0, "divide_last": 0}
+               "tensor_product": 0, "divide_last": 0, "galois_perm": 0}
     if (counts["ntt_launches"] != want
             or counts["modmath_launches"] != want_ew
             or any(_plain(counts).values())
@@ -1366,7 +1378,7 @@ KS_KERNELS = ("ks_mac_cluster_kernel", "ks_epilogue_key_kernel",
               "ks_epilogue_row_kernel")
 MODMATH_KERNELS = ("mod_ew_kernel", "mod_ew_multi_kernel",
                    "mod_ew_mac_kernel", "tensor_product_kernel",
-                   "divide_last_kernel")
+                   "divide_last_kernel", "galois_perm_kernel")
 
 
 def profile_execute(name, pub, compiled, enc, top: int = 10):
@@ -1432,7 +1444,8 @@ def check_replay_launches(name, prof, launches):
             "mod_ew_multi_kernel": ew.get("mod_ew_multi", 0),
             "mod_ew_mac_kernel": ew.get("mod_ew_mac", 0),
             "tensor_product_kernel": ew.get("tensor_product", 0),
-            "divide_last_kernel": ew.get("divide_last", 0)}
+            "divide_last_kernel": ew.get("divide_last", 0),
+            "galois_perm_kernel": ew.get("galois_perm", 0)}
     got = (prof or {}).get("kernel_launches")
     if got != want or not min(want.values()) > 0:
         raise AssertionError(f"{name}: the replayed execute launched "
@@ -1700,14 +1713,16 @@ def multi_card_mesh(pub, encs, want, world: int):
 # The forced one-rank mesh plans (TorchProgram._force_plan) and the
 # kernels each launches; every other kernel of the path stays at 0. dp's
 # key switches are digit-parallel and structured (digits, all-reduce,
-# iNTT, E3, NTT: no K4/K5, no E1 MAC form, no K6/K7); seq routes every
+# iNTT, E3, NTT: no K4/K5, no E1 MAC form, no K6/K7), its automorphisms
+# galois_perm; seq's and dp+seq's automorphisms are a shard exchange and
+# a local index_select (parallel/seq_exec.seq_perm_galois); seq routes every
 # transform through ShardedNTT, whose local phases are K6 (forward) and
 # K7 (inverse) launches, one a phase (no K1/K2), and MACs structured
 # digits (E1's MAC form); dp+seq takes K6/K7 and neither K1/K2 nor the
 # MAC form.
 MESH_PLANS = {
     "dp": {"ntt_fwd", "ntt_inv", "mod_ew", "mod_ew_multi", "tensor_product",
-           "divide_last"},
+           "divide_last", "galois_perm"},
     "seq": {"ntt_shard_fwd", "ntt_shard_inv", "mod_ew", "mod_ew_multi",
             "mod_ew_mac", "tensor_product", "divide_last"},
     "dp+seq": {"ntt_shard_fwd", "ntt_shard_inv", "mod_ew", "mod_ew_multi",
@@ -2551,7 +2566,9 @@ def main() -> int:
             ("tensor_product", ("tensor_product",), "tables.py:172",
              ["tensor_product"]),
             ("divide_last", ("divide_last",), "executor_jax.py:75",
-             [f"divide_last_k{k}" for k in (1, 2)])):
+             [f"divide_last_k{k}" for k in (1, 2)]),
+            ("galois_perm", ("galois_perm",), "executor_jax.py:229",
+             ["galois_perm"])):
         k = kern[key + (TIMED_EW,)]
         counter = "modmath_launches"
         entry = {
@@ -2579,6 +2596,12 @@ def main() -> int:
                 p: paths[p]["captured"]["launches_per_execute"].get(
                     "modmath_ops", {}) for p in paths
                 if "captured" in paths[p]}
+        if name == "galois_perm":
+            # One PyTorch call a plane computes it: index_select, the
+            # plain version, and what the port ran before the kernel.
+            entry["library_ms"] = k["plain_ms"]
+            entry["replaces_note"] = ("DevPerm's MXU one-hot matmul; no "
+                                      "pallas_call")
         if name in ("mod_ew_mac", "divide_last"):
             entry["by_shape"] = {
                 lab: {f: v[f] for f in fields}

@@ -172,17 +172,41 @@ def _ks_maps(ctx, level: int, alpha: int):
 
 class DevPerm:
     """NTT-domain Galois automorphism applicator for device planes: a
-    gather along the last axis with a fixed int64 index (the slot
-    permutation inside SEAL's apply_galois). The JAX package's MXU
-    one-hot formulation is a TPU artifact and is not ported."""
+    gather along the last axis with a fixed index (the slot permutation
+    inside SEAL's apply_galois), held as an int32 table on the device,
+    which a captured graph reads in place. On a CUDA device the planes a
+    rotation permutes go through one galois_perm launch
+    (modmath_cuda.galois_perm); on the CPU, torch.index_select. The JAX
+    package's MXU one-hot formulation is a TPU artifact and is not
+    ported."""
 
     def __init__(self, perm: np.ndarray, device):
-        self.perm = torch.from_numpy(
-            np.asarray(perm).astype(np.int64)).to(device)
-        self.n = self.perm.shape[0]
+        perm = np.asarray(perm)
+        if perm.ndim != 1 or not np.array_equal(np.sort(perm),
+                                                np.arange(perm.shape[0])):
+            raise ValueError("DevPerm: the table is not a permutation")
+        self.table = torch.from_numpy(perm.astype(np.int32)).to(device)
+        self.n = perm.shape[0]
 
     def __call__(self, arr):
-        return torch.index_select(arr, -1, self.perm)
+        return self.planes(arr)[0]
+
+    def planes(self, *arrs) -> list:
+        """The automorphism of each of 1-4 planes: one launch on the
+        card."""
+        if self.table.is_cuda:
+            return modmath_cuda.galois_perm(arrs, self.table)
+        return [torch.index_select(a, -1, self.table) for a in arrs]
+
+
+def _permute(aperm, *arrs) -> list:
+    """The automorphism `aperm` (TorchProgram._aperm) of each of 1-4
+    planes: one launch on the card for a DevPerm; a seq mesh's
+    applicator (parallel/seq_exec.seq_perm_galois) takes one plane at a
+    time."""
+    if isinstance(aperm, DevPerm):
+        return aperm.planes(*arrs)
+    return [aperm(a) for a in arrs]
 
 
 # Values pin the ctx so its id cannot be reused by a new context while
@@ -1057,7 +1081,6 @@ class TorchProgram:
         g = ctx.galois_elt(steps)
         aperm = self._aperm(g)
         alpha = self.keys.galois[g].alpha
-        c0 = aperm(polys[0])
         if self._dp is not None:
             site = f"galois_{g}"
             if hoist is not None and src_key is not None:
@@ -1066,11 +1089,12 @@ class TorchProgram:
                     digits = self._ks_dp_digits(dev.intt(polys[1]), level,
                                                 alpha)
                     hoist[src_key] = digits
+                c0 = aperm(polys[0])
                 acc0, acc1 = self._ks_dp(None, level, site, alpha,
                                          perm=aperm, digits=digits,
                                          defer=True)
             else:
-                c1 = aperm(polys[1])
+                c0, c1 = _permute(aperm, polys[0], polys[1])
                 acc0, acc1 = self._ks_dp(dev.intt(c1), level, site, alpha,
                                          defer=True)
             return ("rotsum", level, c0, None, acc0, acc1)
@@ -1081,8 +1105,10 @@ class TorchProgram:
                 hoist[src_key] = digits
             layout = self.dkeys.layout_rot(self.keys.galois[g], level, g)
             acc0, acc1 = self._ks_mac(digits, level, layout)
-            return ("rotsum", level, c0, None, aperm(acc0), aperm(acc1))
-        c1 = aperm(polys[1])
+            # sigma(c0) with the accumulators: one launch for the three.
+            c0, acc0, acc1 = _permute(aperm, polys[0], acc0, acc1)
+            return ("rotsum", level, c0, None, acc0, acc1)
+        c0, c1 = _permute(aperm, polys[0], polys[1])
         if self._fused_ks_ok():
             acc0, acc1 = self._ks_fused_mac(dev.intt(c1), level,
                                             self.keys.galois[g], poly_ntt=c1)
@@ -1432,7 +1458,6 @@ class TorchProgram:
         g = ctx.galois_elt(steps)
         aperm = self._aperm(g)
         if self._dp is not None:
-            c0 = aperm(polys[0])
             site = f"galois_{g}"
             alpha = self.keys.galois[g].alpha
             if hoist is not None and src_key is not None:
@@ -1441,10 +1466,11 @@ class TorchProgram:
                     digits = self._ks_dp_digits(dev.intt(polys[1]), level,
                                                 alpha)
                     hoist[src_key] = digits
+                c0 = aperm(polys[0])
                 d0, d1 = self._ks_dp(None, level, site, alpha, perm=aperm,
                                      digits=digits)
             else:
-                c1 = aperm(polys[1])
+                c0, c1 = _permute(aperm, polys[0], polys[1])
                 d0, d1 = self._ks_dp(dev.intt(c1), level, site, alpha)
             return [dev.add(c0, d0), d1]
         if hoist is not None and src_key is not None:
@@ -1454,9 +1480,8 @@ class TorchProgram:
                 hoist[src_key] = digits
             layout = self.dkeys.layout_rot(self.keys.galois[g], level, g)
             d0, d1 = self._ks_apply(digits, level, layout)
-            return [aperm(dev.add(polys[0], d0)), aperm(d1)]
-        c0 = aperm(polys[0])
-        c1 = aperm(polys[1])
+            return _permute(aperm, dev.add(polys[0], d0), d1)
+        c0, c1 = _permute(aperm, polys[0], polys[1])
         if self._fused_ks_ok():
             d0, d1 = self._ks_fused_coeffs(dev.intt(c1), level,
                                            self.keys.galois[g], out_ntt=True,
@@ -1509,13 +1534,15 @@ class TorchProgram:
                 dg = digits_full.shard_window(c, g_lo, g_hi)
                 d0, d1 = self._ks_apply(
                     dg, level, self.dkeys.layout_rot(ksk, level, g))
-                out0.append(aperm(dev.add(s0, d0)))
-                out1.append(aperm(d1))
+                r0, r1 = _permute(aperm, dev.add(s0, d0), d1)
+                out0.append(r0)
+                out1.append(r1)
                 continue
+            r0, r1 = _permute(aperm, s0, s1)
             d0, d1 = self._ks_apply(
-                self._ks_digits(aperm(s1), level, ksk.alpha), level,
+                self._ks_digits(r1, level, ksk.alpha), level,
                 self.dkeys.layout(ksk, level))
-            out0.append(dev.add(aperm(s0), d0))
+            out0.append(dev.add(r0, d0))
             out1.append(d1)
         if len(out0) == 1:
             return [out0[0], out1[0]]

@@ -22,6 +22,10 @@ tensor; tables.DeviceLevelOps and ks.divide_last dispatch by device.
   E2 tensor_product(ops, a0, a1, b0, b1) -> [d0, d1, d2];
   E3 divide_last(xs, pinv, ps, ops, addends) -> each of 1-3 polynomials
      divided by its last k primes.
+  galois_perm(planes, perm): the Galois automorphism of 1-4 NTT-domain
+     planes, out[..., j] = x[..., perm[j]], in one launch
+     (executor_torch.DevPerm; its plain version is torch.index_select on
+     a CPU tensor).
   E4 modmul_burn(ops, x): modmath.BURN_K dependent Montgomery
      multiplies of each word of x by 3 and 5 in turn (bench_torch.py's
      modular-multiply rate probe; on no program's path). It dispatches
@@ -35,9 +39,9 @@ output by shape (size-1 dims). E2's and E3's are contiguous. Outputs are
 new contiguous int32 tensors.
 
 `LAUNCHES` counts launches by kernel and form ("mod_ew", "mod_ew_multi",
-"mod_ew_mac", "tensor_product", "divide_last"), and `OPS` counts the
-single and multi forms of E1 by op; both are incremented only where a
-kernel is launched. E4's launches are counted apart, in
+"mod_ew_mac", "tensor_product", "divide_last", "galois_perm"), and `OPS`
+counts the single and multi forms of E1 by op; both are incremented only
+where a kernel is launched. E4's launches are counted apart, in
 `PROBE_LAUNCHES`: every kernel in `LAUNCHES` runs on every program
 path, and E4 on none."""
 
@@ -57,7 +61,7 @@ SOURCE = os.path.join(cuda_lib.CSRC, "modmath.cu")
 LIB_PATH = os.path.join(cuda_lib.BUILD_DIR, "libeva_modmath.so")
 
 LAUNCHES = {"mod_ew": 0, "mod_ew_multi": 0, "mod_ew_mac": 0,
-            "tensor_product": 0, "divide_last": 0}
+            "tensor_product": 0, "divide_last": 0, "galois_perm": 0}
 OPS = Counter()
 PROBE_LAUNCHES = {"modmul_burn": 0}
 
@@ -77,7 +81,7 @@ INFO_NAMES = ([f"mod_ew_{op}" for op in OP_CODES]
               + [f"mod_ew_multi_{op}" for op in OP_CODES]
               + ["mod_ew_mac", "tensor_product"]
               + [f"divide_last_k{k}" for k in range(1, MAX_DIV + 1)]
-              + ["modmul_burn"])
+              + ["modmul_burn", "galois_perm"])
 
 _lib = None
 _lock = threading.Lock()
@@ -115,6 +119,9 @@ def _load():
             lib.eva_modmul_burn.argtypes = [p, p, p, p, i, i,
                                             ctypes.c_longlong, p]
             lib.eva_modmul_burn.restype = i
+            lib.eva_galois_perm.argtypes = [i, pp, pp, p, i,
+                                             ctypes.POINTER(i), dims, p]
+            lib.eva_galois_perm.restype = i
             lib.eva_modmath_info.argtypes = [ctypes.POINTER(i)]
             lib.eva_modmath_info.restype = i
             _lib = lib
@@ -484,6 +491,60 @@ def divide_last(xs, pinv: torch.Tensor, ps, ops, addends=None) -> list:
         (ctypes.c_uint * k)(*ps), k, lead, n_rows, n, int(vec), stream)
     cuda_lib.raise_on(name, err)
     LAUNCHES["divide_last"] += 1
+    return outs
+
+
+def galois_perm(planes, perm: torch.Tensor) -> list:
+    """The Galois automorphism of each of the 1-4 `planes` in one launch:
+    out[..., j] = x[..., perm[j]], a new contiguous tensor of x's shape.
+    Each plane: int32 [..., N] on perm's CUDA device, its last dim of
+    stride 1, its other strides free (leading dims fold into rows).
+    perm: a contiguous int32 [N] permutation of range(N), N a ring size
+    the kernels take (executor_torch.DevPerm builds it and checks that it
+    is a permutation)."""
+    name = "CUDA galois_perm"
+    planes = list(planes)
+    if not 1 <= len(planes) <= MAX_PLANES:
+        raise ValueError(f"{name}: {len(planes)} planes, the kernel takes "
+                         f"1 to {MAX_PLANES}")
+    key = (name, perm.shape, perm.stride(), perm.dtype, perm.device, tuple(
+        (t.shape, t.stride(), t.dtype, t.device) for t in planes))
+    plan = _PLANS.get(key)
+    if plan is None:
+        cuda_lib.check_tensor(perm, perm.device, name)
+        if perm.dim() != 1:
+            raise ValueError(f"{name}: a table of shape "
+                             f"{tuple(perm.shape)}, not [N]")
+        n = perm.shape[0]
+        cuda_lib.check_ring(n, name)
+        meta, dims, live = [], [], []
+        for k, t in enumerate(planes):
+            _check_operand(t, perm.device, name)
+            if t.dim() == 0 or t.shape[-1] != n:
+                raise ValueError(f"{name}: a plane of shape "
+                                 f"{tuple(t.shape)} against a table of {n}")
+            if t.numel() == 0:
+                continue
+            lead = _lead_spec(t.shape[:-1], [t.stride()[:-1]])
+            meta.append(len(lead))
+            dims += [size for size, _ in lead] + [st[0] for _, st in lead]
+            live.append(k)
+        plan = _PLANS[key] = (n, live, (ctypes.c_int * len(meta))(*meta),
+                              (ctypes.c_longlong * len(dims))(*dims))
+    n, live, meta, dims = plan
+    device = perm.device
+    outs = [torch.empty(t.shape, dtype=torch.int32, device=device)
+            for t in planes]
+    if not live:
+        return outs
+    lib = _load()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.eva_galois_perm(
+        len(live), _ptrs([planes[k].data_ptr() for k in live]),
+        _ptrs([outs[k].data_ptr() for k in live]), perm.data_ptr(), n, meta,
+        dims, stream)
+    cuda_lib.raise_on(name, err)
+    LAUNCHES["galois_perm"] += 1
     return outs
 
 

@@ -27,8 +27,17 @@
 //                      turn, which XLA fuses into one pass; the
 //                      benchmark's modular-multiply rate probe (on no
 //                      program's path)
+//   galois_perm        no TPU kernel: the Galois automorphism of NTT-domain
+//                      planes, out[.., j] = x[.., perm[j]], which the JAX
+//                      package computes as a one-hot matmul on the MXU
+//                      (executor_jax.py DevPerm) and the port first left to
+//                      PyTorch's index_select (a gather kernel, ~5-6 us a
+//                      call at one [4-13, 16384] plane); here the 1-4
+//                      planes a rotation permutes (c0 and the key switch's
+//                      two accumulators or outputs) in one launch
 // Plain PyTorch versions: eva_tpu_torch/backend/modmath.py (E1, E2, E4)
-// and backend/ks.py divide_last_plain (E3). Every formula is the JAX
+// and backend/ks.py divide_last_plain (E3); torch.index_select on a CPU
+// tensor (galois_perm, executor_torch.DevPerm). Every formula is the JAX
 // package's, written literally (a compare and select where it has
 // jnp.where), so the results are its uint32 results bit for bit, for
 // every input it accepts (unreduced first operands up to 2^32 for the
@@ -145,6 +154,24 @@ struct Div {
   uint32_t p[kMaxDiv];
   long long lead;
   int n_rows, n;
+};
+
+// galois_perm: 1-4 input planes, each [lead, n] with its leading dims
+// (coalesced, at most kMaxDims; the rows included) strided in words and the
+// last dim of stride 1, and contiguous outputs of the same shapes; block
+// row r belongs to the last plane k with first[k] <= r.
+struct PermPlane {
+  const uint32_t* src;
+  uint32_t* out;
+  int ndim;
+  int size[kMaxDims];
+  long long stride[kMaxDims];
+};
+
+struct Perm {
+  int count, n;
+  long long first[kMaxPlanes];
+  PermPlane p[kMaxPlanes];
 };
 
 // Programmatic dependent launch (see the header): the next kernel of the
@@ -526,6 +553,52 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// galois_perm: block row `row` of the planes -> its input row and its
+// output row.
+__device__ __forceinline__ const uint32_t* perm_rows(const Perm& P,
+                                                     long long row,
+                                                     uint32_t** dst) {
+  int k = 0;
+  while (k + 1 < P.count && row >= P.first[k + 1]) ++k;
+  const PermPlane& pl = P.p[k];
+  row -= P.first[k];
+  *dst = pl.out + row * P.n;
+  long long off = 0;
+  for (int d = pl.ndim - 1; d >= 0; --d) {
+    off += (row % pl.size[d]) * pl.stride[d];
+    row /= pl.size[d];
+  }
+  return pl.src + off;
+}
+
+// galois_perm: out[j] = src[perm[j]] over one output row, kVec words a
+// thread: the table's words and the stores coalesced (16 bytes a thread),
+// the reads gathered through L1/L2 (a row is 64 KB at N = 16384). Bytes
+// bound it, and at a rotation's three planes the launch: 1.4-2.0 us
+// against 0.9-1.5 us of bytes. Staging each input row in shared memory
+// first and gathering from there measured 2-2.5x slower at those shapes
+// (a block a row leaves most SMs idle; a row split over blocks is copied
+// once per block). The table is written once, at set-up, before any
+// launch that reads it, so its words are loaded before the wait for the
+// previous grid.
+__global__ void __launch_bounds__(kThreads)
+    galois_perm_kernel(const __grid_constant__ Perm P,
+                       const int* __restrict__ perm) {
+  launch_dependents();
+  uint32_t* dst;
+  const uint32_t* src = perm_rows(P, blockIdx.x, &dst);
+  const int e0 = first_col<kVec>();
+  int4 idx = e0 < P.n ? __ldg(reinterpret_cast<const int4*>(perm + e0))
+                      : make_int4(0, 0, 0, 0);
+  wait_prior_grid();
+  for (int e = e0; e < P.n; e += col_step<kVec>()) {
+    if (e != e0) idx = __ldg(reinterpret_cast<const int4*>(perm + e));
+    const uint32_t v[kVec] = {__ldg(src + idx.x), __ldg(src + idx.y),
+                              __ldg(src + idx.z), __ldg(src + idx.w)};
+    store<kVec>(dst, e, v);
+  }
+}
+
 // The grid of `rows` block rows of n words, W words a thread: one block
 // per row and kThreads * W columns.
 template <int W>
@@ -787,10 +860,48 @@ int eva_modmul_burn(const void* x, void* out, const void* q, const void* nqinv,
   return (int)cudaGetLastError();
 }
 
+// galois_perm: out[k][.., j] = src[k][.., perm[j]] for the count <= 4
+// planes, each described by meta[k] = ndim and its 2 ndim values in dims
+// (its leading dims' sizes, then the input's strides along them, in
+// words), one after the other; n % 4 == 0, perm a permutation of 0 .. n-1
+// (int32). Returns the launch's cudaError_t.
+int eva_galois_perm(int count, const void* const* src, void* const* out,
+                    const void* perm, int n, const int* meta,
+                    const long long* dims, void* stream) {
+  if (count < 1 || count > kMaxPlanes || n <= 0 || n % kVec)
+    return (int)cudaErrorInvalidValue;
+  Perm P{};
+  P.count = count;
+  P.n = n;
+  long long rows = 0;
+  for (int k = 0; k < count; ++k) {
+    PermPlane& pl = P.p[k];
+    const int ndim = meta[k];
+    if (ndim < 0 || ndim > kMaxDims) return (int)cudaErrorInvalidValue;
+    pl.src = (const uint32_t*)src[k];
+    pl.out = (uint32_t*)out[k];
+    pl.ndim = ndim;
+    long long r = 1;
+    for (int d = 0; d < ndim; ++d) {
+      if (dims[d] <= 0) return (int)cudaErrorInvalidValue;
+      pl.size[d] = (int)dims[d];
+      pl.stride[d] = dims[ndim + d];
+      r *= dims[d];
+    }
+    dims += 2 * ndim;
+    P.first[k] = rows;
+    rows += r;
+  }
+  if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  return (int)launch(galois_perm_kernel, grid<kVec>(rows, n),
+                     (cudaStream_t)stream, P, (const int*)perm);
+}
+
 // Resource use, for reports: out[2j], out[2j + 1] = registers and local
 // (spill) bytes per thread of kernel j, in this order, each at 4 words a
 // thread: the single form of E1 op k (k < 6), its multi form (k < 6), the
-// MAC form, E2 (one word a thread), E3 at k = 1 .. 8, E4. Returns the count
+// MAC form, E2 (one word a thread), E3 at k = 1 .. 8, E4, galois_perm.
+// Returns the count
 // of kernels, or minus a cudaError_t.
 int eva_modmath_info(int* out) {
   const void* fns[] = {
@@ -816,7 +927,8 @@ int eva_modmath_info(int* out) {
       (const void*)divide_last_kernel<6, kVec>,
       (const void*)divide_last_kernel<7, kVec>,
       (const void*)divide_last_kernel<8, kVec>,
-      (const void*)modmul_burn_kernel};
+      (const void*)modmul_burn_kernel,
+      (const void*)galois_perm_kernel};
   const int count = (int)(sizeof(fns) / sizeof(fns[0]));
   for (int j = 0; j < count; ++j) {
     cudaFuncAttributes attr;

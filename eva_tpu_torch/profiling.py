@@ -9,9 +9,9 @@ Port of eva_tpu/profiling.py. Run on the card:
 
 Times each ciphertext primitive of the port (the dyadic add and
 multiply: the CUDA kernel E1; the CUDA NTT kernels K1/K2; the
-automorphism gather; the rescale: E3; and a full rotation through the
-fused key-switch kernels K4/K5) with the chained-dependency + host-read
-slope method and reports achieved bytes/s against the card's HBM
+automorphism gather (galois_perm); the rescale: E3; and a full rotation
+through the fused key-switch kernels K4/K5) with the chained-dependency +
+host-read slope method and reports achieved bytes/s against the card's HBM
 roofline, measured in the same process with a large elementwise pass.
 `mesh` prints recommend_mesh's meshes for a program on that many cards
 beside the collective constants (COLLECTIVE_CONSTANTS) and the measured
@@ -193,7 +193,8 @@ def calibration(results, hbm: float, n_sub: int) -> Dict[str, float]:
 # estimate_program's default calibration: calibration() of one
 # profile() at N = 16384, 6 data entries, 32-bit residues, on an NVIDIA
 # H100 80GB HBM3 at a 700 W power limit (chip_smoke.py's profiling phase;
-# `python -m eva_tpu_torch.profiling` prints the same).
+# `python -m eva_tpu_torch.profiling` prints the same), its perm_row_us
+# while the automorphism ran PyTorch's index_select.
 H100_CALIBRATION = {"ntt_row_us": 0.1561, "perm_row_us": 0.1148,
                     "hbm_gbs": 2920.6, "hbm_eff": 0.3412}
 
@@ -223,7 +224,8 @@ def estimate_program(compiled, params, *,
                    launches 2-12 rows at a time, where a launch costs its
                    latency, not rows x this cost, so the model
                    underestimates the NTT time of an execute;
-      perm_row_us  one row of the automorphism gather (index_select);
+      perm_row_us  one row of the automorphism gather (galois_perm; the
+                   default's value was measured with index_select);
       hbm_gbs      the card's HBM roofline, measure_hbm_roofline();
       hbm_eff      the fraction of it the modular add and multiply
                    reach (one E1 launch each).

@@ -1,8 +1,9 @@
 """The CUDA kernels (eva_tpu_torch/csrc/ntt.cu: the NTT; csrc/ks.cu: the
 fused key switch's MAC and epilogue; csrc/modmath.cu: the elementwise
 modular ops E1 in their single, several-planes and MAC forms, the tensor
-product E2, the divide-last E3, the bench's rate probe E4; csrc/ntt_shard.cu:
-the sharded NTT's local phases K6, K7) against their plain PyTorch
+product E2, the divide-last E3, the bench's rate probe E4, the Galois
+automorphism galois_perm; csrc/ntt_shard.cu: the sharded NTT's local
+phases K6, K7) against their plain PyTorch
 versions, and their wrappers' refusals, on a CUDA GPU;
 whole programs of tools/fuzz_cuda.py (random and from the reference's
 matrices) against the numpy backend and the plain versions; every test
@@ -564,6 +565,164 @@ def test_cuda_modmath_wrappers_reject_what_the_kernels_do_not_take(cuda):
         dev.add(x.to(torch.int64), x)
     dev.add(x, x)
     assert M.PLAIN_CALLS == plain
+
+
+# -- the Galois automorphism (galois_perm: csrc/modmath.cu) -----------------
+
+# The cells' contexts at N = 16384: (prime bits, image width) of Sobel
+# 90x90 and Harris 64x64, each rotating by i * w + j for 0 <= i, j < 3.
+_PERM_CONFIGS = {"sobel90": ((60, 20, 60, 60, 60, 60, 60), 90),
+                 "harris64": ((60, 60, 60, 60, 60), 64)}
+
+
+def _perm_ctx(config):
+    bits, w = _PERM_CONFIGS[config]
+    steps = tuple(i * w + j for i in range(3) for j in range(3) if i or j)
+    return get_context(bits, steps, 16384, 1), steps
+
+
+def _index_select(x, table):
+    return torch.index_select(x, -1, table.to(torch.int64))
+
+
+@pytest.mark.parametrize("config", sorted(_PERM_CONFIGS))
+def test_cuda_galois_perm_matches_index_select(cuda, config):
+    """Every Galois element of the configuration's key set at every
+    level's row counts: c0 (the level's data primes) and the two
+    extended-basis accumulators in one launch, bit for bit index_select;
+    the table is the context's permutation."""
+    from eva_tpu_torch.backend.executor_torch import dev_perm
+    ctx, steps = _perm_ctx(config)
+    for level in range(len(ctx.data_entries)):
+        primes = ctx.primes_at_level(level)
+        c0 = _planes(level, primes, (ctx.n,)).to(cuda)
+        acc0, acc1 = (_planes(level + k, primes + ctx.key_primes,
+                              (ctx.n,)).to(cuda) for k in (10, 20))
+        for step in steps:
+            g = ctx.galois_elt(step)
+            perm = dev_perm(ctx, g, cuda)
+            assert perm.table.dtype == torch.int32
+            assert np.array_equal(perm.table.cpu().numpy(),
+                                  ctx.perm_for_elt(g))
+            launches = modmath_cuda.LAUNCHES["galois_perm"]
+            got = perm.planes(c0, acc0, acc1)
+            assert modmath_cuda.LAUNCHES["galois_perm"] == launches + 1
+            for x, y in zip((c0, acc0, acc1), got):
+                assert y.dtype == torch.int32 and y.is_contiguous()
+                assert torch.equal(y, _index_select(x, perm.table))
+
+
+@pytest.mark.parametrize("n", [1024, 16384, 32768])
+def test_cuda_galois_perm_batches_mixed_planes_and_strided_rows(cuda, n):
+    """Leading batch dims fold into rows; the planes of one launch may
+    differ in rows and leading dims; rows strided in place (a row slice
+    of a batched plane, a narrowed shard axis, swapped leading dims);
+    an empty plane; every plane bit for bit index_select."""
+    from eva_tpu_torch.backend.executor_torch import DevPerm
+    rng = np.random.default_rng(n)
+    perm = DevPerm(rng.permutation(n), cuda)
+    primes = [q for e in build_chain([60] * 7, n) for q in e.primes]
+    wide = _planes(n, primes, (4, n)).to(cuda)           # [4, 14, n]
+    shards = _planes(n + 1, primes[:11], (2, 3, n)).to(cuda)
+    cases = [
+        [wide],
+        [wide[:, :11, :], wide[1, 3:9, :], shards.narrow(1, 1, 2),
+         shards.transpose(0, 1)],
+        [wide[..., :0, :], wide[0]],
+        [wide[:, None, :11, :].expand(4, 2, 11, n)],
+    ]
+    for planes in cases:
+        launches = modmath_cuda.LAUNCHES["galois_perm"]
+        got = perm.planes(*planes)
+        assert modmath_cuda.LAUNCHES["galois_perm"] == launches + 1
+        assert len(got) == len(planes)
+        for x, y in zip(planes, got):
+            assert y.shape == x.shape and y.is_contiguous()
+            assert torch.equal(y, _index_select(x, perm.table))
+    assert torch.equal(perm(wide), _index_select(wide, perm.table))
+
+
+def test_cuda_galois_perm_rejects_what_the_kernel_does_not_take(cuda):
+    n = 1024
+    table = torch.from_numpy(
+        np.random.default_rng(1).permutation(n).astype(np.int32)).to(cuda)
+    x = _planes(1, [q for e in build_chain([60, 60], n) for q in e.primes],
+                (n,)).to(cuda)
+    launches = modmath_cuda.LAUNCHES["galois_perm"]
+    with pytest.raises(ValueError, match="planes"):
+        modmath_cuda.galois_perm([x] * 5, table)
+    with pytest.raises(ValueError, match="planes"):
+        modmath_cuda.galois_perm([], table)
+    with pytest.raises(ValueError, match="int32"):
+        modmath_cuda.galois_perm([x.to(torch.int64)], table)
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        modmath_cuda.galois_perm([x, x.cpu()], table)
+    with pytest.raises(ValueError, match="stride 1"):
+        modmath_cuda.galois_perm([torch.cat([x, x], -1)[..., ::2]], table)
+    with pytest.raises(ValueError, match="against a table"):
+        modmath_cuda.galois_perm([x[..., :n // 2]], table)
+    with pytest.raises(ValueError, match="int32"):
+        modmath_cuda.galois_perm([x], table.to(torch.int64))
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        modmath_cuda.galois_perm([x], table.cpu())
+    with pytest.raises(ValueError, match=r"not \[N\]"):
+        modmath_cuda.galois_perm([x], table.reshape(2, n // 2))
+    with pytest.raises(ValueError, match="power of two"):
+        modmath_cuda.galois_perm([x[..., :1000]], table[:1000])
+    assert modmath_cuda.LAUNCHES["galois_perm"] == launches
+
+
+@pytest.mark.parametrize("config,rotations,gathers", [
+    ("sobel90", 8, 1), ("harris64", 32, 4)])
+def test_cuda_program_permutes_once_per_rotation(cuda, config, rotations,
+                                                 gathers):
+    """The cells' programs (Sobel 90x90, Harris 64x64) on the card: a
+    captured replay launches galois_perm once per rotation (c0 and the
+    two accumulators together), and the profiler sees PyTorch's gather
+    kernel only for the digit rows of each hoisted source
+    (take_digit_axis); the eager execute counts the same; outputs
+    bit-identical to the numpy backend."""
+    import bench_torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from eva_tpu_torch.backend.executor_torch import TorchProgram
+    from eva_tpu_torch.ckks import CKKSCompiler
+    from eva_tpu_torch.runtime import EVAPublic, generate_keys
+
+    build = {"sobel90": lambda: bench_torch.build_sobel(90, 90),
+             "harris64": lambda: bench_torch.build_harris(64, 64)}[config]
+    prog = build()
+    compiled, params, sig = CKKSCompiler(
+        {"warn_vec_size": "false"}).compile(prog)
+    pub, _ = generate_keys(params)
+    rng = np.random.default_rng(7)
+    enc = pub.encrypt({"image": rng.uniform(0, 1, prog.vec_size).tolist()},
+                      sig)
+    want = EVAPublic(pub.ctx, pub._keys, params,
+                     backend="numpy").execute(compiled, enc)
+    _same(want, pub.execute(compiled, enc))
+    tp = pub._executor_for(compiled)._get_torch_program()
+    (entry,) = tp._captured.values()
+    assert entry.launches["modmath_launches"]["galois_perm"] == rotations
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        launches = modmath_cuda.LAUNCHES["galois_perm"]
+        got = pub.execute(compiled, enc)
+        torch.cuda.synchronize()
+    assert modmath_cuda.LAUNCHES["galois_perm"] == launches + rotations
+    _same(want, got)
+    # The profiler may miss a few events of a replay: at most these.
+    ran = [e.key for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert 0 < sum("galois_perm_kernel" in k for k in ran) <= rotations, ran
+    assert sum("scatter_gather" in k for k in ran) <= gathers, ran
+    TorchProgram._capture = False
+    try:
+        launches = modmath_cuda.LAUNCHES["galois_perm"]
+        _same(want, pub.execute(compiled, enc))
+        assert modmath_cuda.LAUNCHES["galois_perm"] == launches + rotations
+    finally:
+        TorchProgram._capture = True
 
 
 # -- the sharded NTT's local phases (K6, K7: csrc/ntt_shard.cu) -------------

@@ -82,7 +82,7 @@ def test_executor_state_and_outputs_are_int32(program, fused, monkeypatch):
         if ops._consts:
             _all_int32(ops._consts, "level constants")
     for _, perm in et._DEV_PERM_CACHE.values():
-        assert perm.perm.dtype == torch.int64
+        assert perm.table.dtype == torch.int32
     # The host sees the numpy backend's uint64 values.
     host = EVAPublic(pub.ctx, pub._keys, params, backend="numpy")
     want = host.execute(compiled, encs[1])

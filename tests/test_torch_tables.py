@@ -154,3 +154,35 @@ def test_plain_calls_counted_and_cuda_wrapper_refuses_cpu_tensors():
         modmath_cuda.divide_last([x], x[:-1, :1].contiguous(), [PRIMES[-1]],
                                  TT.DeviceLevelOps(PRIMES[:-1], 64, "cpu"))
     assert modmath_cuda.LAUNCHES == launches
+
+
+def test_galois_perm_table_and_cpu_path():
+    """DevPerm's int32 table is the context's NTT-domain permutation; on
+    the CPU its planes() permutes each plane by index_select, as the
+    numpy backend's apply_automorphism does, and launches nothing; the
+    card's wrapper refuses a CPU table; a table that is not a
+    permutation is refused."""
+    from eva_tpu_torch.backend.executor_torch import DevPerm, dev_perm
+    from eva_tpu_torch.crypto.context import get_context
+    ctx = get_context((60, 60), (1, 3), 1024, 1)
+    rng = np.random.default_rng(21)
+    c0 = rng.integers(0, 2 ** 32, (2, 1024), dtype=np.uint64)
+    acc = rng.integers(0, 2 ** 32, (3, 4, 1024), dtype=np.uint64)
+    launches = dict(modmath_cuda.LAUNCHES)
+    for step in (1, 3):
+        g = ctx.galois_elt(step)
+        perm = dev_perm(ctx, g, "cpu")
+        assert perm.table.dtype == torch.int32
+        np.testing.assert_array_equal(perm.table.numpy(),
+                                      ctx.perm_for_elt(g))
+        got = perm.planes(_t(c0), _t(acc)[:, 1:, :])
+        np.testing.assert_array_equal(_u(got[0]),
+                                      ctx.apply_automorphism(c0, g))
+        np.testing.assert_array_equal(
+            _u(got[1]), ctx.apply_automorphism(acc[:, 1:, :], g))
+        np.testing.assert_array_equal(_u(perm(_t(c0))), _u(got[0]))
+        with pytest.raises(ValueError, match="not on a CUDA device"):
+            modmath_cuda.galois_perm([_t(c0)], perm.table)
+    assert modmath_cuda.LAUNCHES == launches
+    with pytest.raises(ValueError, match="not a permutation"):
+        DevPerm(np.zeros(1024, dtype=np.int64), "cpu")
