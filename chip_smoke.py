@@ -1476,7 +1476,8 @@ def replay_phase(name, pub, compiled, enc, ref_out, reps=5):
             "profile": prof, "idle_share": 1 - prof["device_ms"] / wall,
             "capture_s": entry.capture_s,
             "graph_pool_bytes": entry.pool_bytes,
-            "launches_per_execute": entry.launches}
+            "launches_per_execute": entry.launches,
+            "key_switches": entry.launches["key_switches"]}
 
 
 def capture_phase(name, pub, compiled, enc, ref_out, reps=5):
@@ -2453,6 +2454,7 @@ def main() -> int:
                          "idle_share": cap["idle_share"],
                          "capture_s": cap["capture_s"],
                          "graph_pool_bytes": cap["graph_pool_bytes"],
+                         "key_switches": cap["key_switches"],
                          "span_ms": cap["profile"]["span_ms"]},
             "eager": {"execute_ms_median":
                       cap["eager"]["execute_ms_median"],

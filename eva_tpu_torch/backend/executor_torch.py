@@ -1081,9 +1081,12 @@ class TorchProgram:
         g = ctx.galois_elt(steps)
         aperm = self._aperm(g)
         alpha = self.keys.galois[g].alpha
+        hoisted = hoist is not None and src_key is not None
+        KEY_SWITCHES["hoisted_rotation" if hoisted
+                     else "single_rotation"] += 1
         if self._dp is not None:
             site = f"galois_{g}"
-            if hoist is not None and src_key is not None:
+            if hoisted:
                 digits = hoist.get(src_key)
                 if digits is None:
                     digits = self._ks_dp_digits(dev.intt(polys[1]), level,
@@ -1098,7 +1101,7 @@ class TorchProgram:
                 acc0, acc1 = self._ks_dp(dev.intt(c1), level, site, alpha,
                                          defer=True)
             return ("rotsum", level, c0, None, acc0, acc1)
-        if hoist is not None and src_key is not None:
+        if hoisted:
             digits = hoist.get(src_key)
             if digits is None:
                 digits = self._ks_digits(polys[1], level)
@@ -1376,6 +1379,7 @@ class TorchProgram:
     def _relin(self, polys, level: int, dev: DeviceLevelOps):
         if len(polys) == 2:
             return list(polys)
+        KEY_SWITCHES["relin"] += 1
         d0, d1 = self._key_switch(polys[2], level, self.keys.relin)
         return dev.ew_planes("add", [(polys[0], d0), (polys[1], d1)])
 
@@ -1392,6 +1396,7 @@ class TorchProgram:
         coeffs = [dev.intt(polys[0]), dev.intt(polys[1])]
         addends = None
         if len(polys) == 3:
+            KEY_SWITCHES["relin"] += 1
             if self._dp is not None:
                 addends = self._ks_dp(dev.intt(polys[2]), level, "relin",
                                       self.keys.relin.alpha, out_ntt=False)
@@ -1421,6 +1426,7 @@ class TorchProgram:
         coeffs = self._divide([dev.intt(c) for c in polys], primes, k)
         if len(polys) == 2:
             return [dev_new.ntt(c) for c in coeffs]
+        KEY_SWITCHES["relin"] += 1
         if self._dp is not None:
             d0, d1 = self._ks_dp(coeffs[2], new_level, "relin",
                                  self.keys.relin.alpha, out_ntt=False)
@@ -1457,10 +1463,13 @@ class TorchProgram:
                                         src_key)
         g = ctx.galois_elt(steps)
         aperm = self._aperm(g)
+        hoisted = hoist is not None and src_key is not None
+        KEY_SWITCHES["hoisted_rotation" if hoisted
+                     else "single_rotation"] += 1
         if self._dp is not None:
             site = f"galois_{g}"
             alpha = self.keys.galois[g].alpha
-            if hoist is not None and src_key is not None:
+            if hoisted:
                 digits = hoist.get(src_key)
                 if digits is None:
                     digits = self._ks_dp_digits(dev.intt(polys[1]), level,
@@ -1473,7 +1482,7 @@ class TorchProgram:
                 c0, c1 = _permute(aperm, polys[0], polys[1])
                 d0, d1 = self._ks_dp(dev.intt(c1), level, site, alpha)
             return [dev.add(c0, d0), d1]
-        if hoist is not None and src_key is not None:
+        if hoisted:
             digits = hoist.get(src_key)
             if digits is None:
                 digits = self._ks_digits(polys[1], level)
@@ -1528,6 +1537,8 @@ class TorchProgram:
             g = ctx.galois_elt(amt)
             aperm = self._aperm(g)
             ksk = self.keys.galois[g]
+            KEY_SWITCHES["single_rotation" if digits_full is None
+                         else "hoisted_rotation"] += 1
             if digits_full is not None:
                 # Permute-after: MAC the shared digits against the
                 # inverse-permuted key, automorph only the two outputs.
@@ -1911,8 +1922,19 @@ def _copy_out(out):
     return host, done
 
 
+# Key switches by kind, counted where `_traced` performs them: a
+# "hoisted_rotation" MACs the shared digits of its source (one
+# decomposition per source), a "single_rotation" decomposes its own
+# permuted c1, a "relin" is a relinearization's. A sharded big vector's
+# rotation counts each of its (at most two) key switches. Like the
+# launch counters, a replay adds what its capture counted
+# (_Captured.launches["key_switches"]).
+KEY_SWITCHES = {"hoisted_rotation": 0, "single_rotation": 0, "relin": 0}
+
+
 def _counters():
-    """The kernel wrappers' launch counters, by name."""
+    """The kernel wrappers' launch counters and the key switches, by
+    name."""
     return {"ntt_launches": ntt_cuda.LAUNCHES,
             "ntt_fwd_rows": ntt_cuda.ROWS["ntt_fwd"],
             "ntt_inv_rows": ntt_cuda.ROWS["ntt_inv"],
@@ -1920,7 +1942,8 @@ def _counters():
             "ks_max_batch": ks_cuda.MAX_BATCH,
             "modmath_launches": modmath_cuda.LAUNCHES,
             "modmath_ops": modmath_cuda.OPS,
-            "ntt_shard_launches": ntt_shard_cuda.LAUNCHES}
+            "ntt_shard_launches": ntt_shard_cuda.LAUNCHES,
+            "key_switches": KEY_SWITCHES}
 
 
 def _take_counts(restore=None) -> Dict[str, dict]:

@@ -725,6 +725,59 @@ def test_cuda_program_permutes_once_per_rotation(cuda, config, rotations,
         TorchProgram._capture = True
 
 
+def test_cuda_cryptonets_replay_counts_its_key_switches(cuda, monkeypatch):
+    """CryptoNets' MNIST network (examples/cryptonets_torch.py) at its
+    published widths, N=32768: its graph's capture counts 24 hoisted
+    rotations (the 25 kernel offsets less (0, 0), all of the image),
+    1,100 single ones (a rotate-and-sum of 10 rotations over the 1,024
+    slots for each of the 110 dense outputs) and 6 relinearizations (the
+    5 maps' squares and the hidden layer's); each replay adds them and
+    uploads nothing: the graph holds its 752 constants, more than the
+    upload cache keeps; the decrypted logits are within 1e-4 of the
+    plain reference (the CKKS noise at scale 2^40 reads up to ~5e-5 at
+    the widest slot)."""
+    import importlib.util
+    import os
+
+    from eva_tpu_torch.backend import executor_torch as et
+    from eva_tpu_torch.ckks import CKKSCompiler
+    from eva_tpu_torch.runtime import generate_keys
+
+    def load(name):
+        path = os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "examples", f"{name}.py")
+        spec = importlib.util.spec_from_file_location(name, path)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        return module
+
+    example, ref = load("cryptonets_torch"), load("cryptonets_reference")
+    prog = example.build()
+    compiled, params, sig = CKKSCompiler(
+        {"warn_vec_size": "false"}).compile(prog)
+    assert params.poly_modulus_degree == 32768
+    pub, secret = generate_keys(params)
+    img = np.zeros(prog.vec_size)
+    img[:784] = np.random.default_rng(11).uniform(0, 1, 784)
+    enc = pub.encrypt({"image": img.tolist()}, sig)
+    pub.execute(compiled, enc)
+    tp = pub._executor_for(compiled)._get_torch_program()
+    (entry,) = tp._captured.values()
+    want = {"hoisted_rotation": 24, "single_rotation": 1100, "relin": 6}
+    assert entry.launches["key_switches"] == want
+    assert len(entry.consts) == 752 > tp._upload_cache_cap
+    before = dict(et.KEY_SWITCHES)
+    uploads = []
+    to_dev = et._to_dev
+    monkeypatch.setattr(et, "_to_dev", lambda arr, device: uploads.append(
+        np.shape(arr)) or to_dev(arr, device))
+    out = secret.decrypt(pub.execute(compiled, enc), sig)
+    assert uploads == []
+    assert {k: et.KEY_SWITCHES[k] - before[k] for k in before} == want
+    np.testing.assert_allclose(out["logits"], ref.reference(img)["logits"],
+                               rtol=0, atol=1e-4)
+
+
 # -- the sharded NTT's local phases (K6, K7: csrc/ntt_shard.cu) -------------
 
 # (N, shards D, leading shape, primes): the CPU test's rings and shard
