@@ -29,8 +29,10 @@ Phases (any failure exits non-zero and prints no result line):
      walks two digits), Sobel's deepest level (one group), a context
      with one key prime, and Sobel's level 0 at N = 1024 and 32768.
      The key-switch kernels' registers, spill bytes and the clusters the
-     card holds at once are printed first. Elementwise kernels
-     (modmath_kernel_phase), with their registers and spills first: E1's
+     card holds at once are printed first, at every ring size, with the
+     epilogue's cluster size at batch 1 and its threads per block (each
+     epilogue call also reports the cluster size it launched with).
+     Elementwise kernels (modmath_kernel_phase), with their registers and spills first: E1's
      single form (every op: add, sub, neg, mul_mont, mul, shoup; the
      second operand full, a plaintext shared by the batch, a per-row
      constant; an unreduced first operand for the multiplies; a strided
@@ -90,7 +92,11 @@ Phases (any failure exits non-zero and prints no result line):
      EVA_TPU_NO_FUSED_KS=1 (the structured key switch, its own graph)
      under the same checks; one line compares the two. Sobel 128x128
      (vec_size 16384 at N=16384: two shards, sharded rotations) runs
-     under the same checks and its own MSE limit. Then, all through
+     under the same checks and its own MSE limit. CryptoNets' MNIST
+     network (examples/cryptonets_torch.py, N=32768; cryptonets_phase):
+     the replay of its captured graph bit-identical to an eager execute,
+     with a replay's key switches and epilogue calls by cluster size and
+     both wall medians; one `path cryptonets {...}` line. Then, all through
      graphs, execute_batch of 4 Sobel requests and execute_pipelined
      over 8, each output bit-identical to its own sequential execute,
      with the key-switch kernels launched at batch 4. Then the mesh
@@ -469,7 +475,7 @@ def ks_kernel_phase(device):
     from eva_tpu_torch.backend.tables import level_ops
     from eva_tpu_torch.crypto.context import get_context
 
-    for logn in (14, 15):
+    for logn in range(10, 16):
         print(f"kernels ks resources logn={logn} "
               + json.dumps(ks_cuda.kernel_info(logn, device)), flush=True)
     results = {}
@@ -504,7 +510,7 @@ def ks_kernel_phase(device):
                     f"alpha={alpha} groups={n_groups}"
             key = f"{label}_N{n}_B{batch}"
             timed = key in TIMED_KS
-            info = ks_cuda.kernel_info(ext.logn, device, n_key)
+            info = ks_cuda.kernel_info(ext.logn, device, n_key, n_ext)
             resources = {
                 "ks_mac": {**info["ks_mac_cluster_kernel"],
                            "cluster": ks_cuda.mac_cluster(
@@ -539,12 +545,16 @@ def ks_kernel_phase(device):
                 print(f"kernel ks_mac {key} " + json.dumps(res), flush=True)
                 results[("ks_mac", key)] = res
             for out_ntt in (True, False):
+                clusters = dict(ks_cuda.EPILOGUE_CLUSTER)
                 got = ks_cuda.ks_epilogue(acc0, acc1, ext, n_key, out_ntt)
+                (launched,) = (c for c, k in ks_cuda.EPILOGUE_CLUSTER.items()
+                               if k != clusters.get(c, 0))
                 want = ks.ks_epilogue_plain(acc0, acc1, ext, n_key, out_ntt)
                 torch.cuda.synchronize()
                 ok = all(torch.equal(g, w) for g, w in zip(got, want))
                 print(f"kernels ks_epilogue {label} {shape} "
-                      f"out_ntt={out_ntt} equal={ok}", flush=True)
+                      f"out_ntt={out_ntt} cluster={launched} equal={ok}",
+                      flush=True)
                 if not ok:
                     raise AssertionError(
                         f"ks_epilogue disagrees: {label} {shape}")
@@ -562,7 +572,7 @@ def ks_kernel_phase(device):
                     "bound_ms": bms, "bound_by": bby,
                     "max_abs_err": max(int((g - w).abs().max().item())
                                        for g, w in zip(got, want)),
-                    **resources["ks_epilogue"]}
+                    "cluster": launched, **resources["ks_epilogue"]}
                 print(f"kernel ks_epilogue {key} " + json.dumps(res),
                       flush=True)
                 results[("ks_epilogue", key)] = res
@@ -1506,6 +1516,54 @@ def capture_phase(name, pub, compiled, enc, ref_out, reps=5):
     res["eager"] = {"execute_ms_median": wall, "execute_ms_all": times,
                     "profile": prof,
                     "idle_share": 1 - prof["device_ms"] / wall}
+    return res
+
+
+def cryptonets_phase(reps=3):
+    """CryptoNets' MNIST network (examples/cryptonets_torch.py) at its
+    published widths, N=32768, on the fused key switch: the replay of its
+    captured graph bit-identical to an eager execute (TorchProgram._capture
+    off); a replay's key switches and epilogue calls by cluster size (the
+    capture's counts); the first execute's seconds and both wall
+    medians."""
+    import importlib.util
+
+    from eva_tpu_torch.backend.executor_torch import TorchProgram
+    from eva_tpu_torch.ckks import CKKSCompiler
+    from eva_tpu_torch.runtime import generate_keys
+
+    spec = importlib.util.spec_from_file_location(
+        "cryptonets_torch", os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "examples", "cryptonets_torch.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    prog = example.build()
+    compiled, params, sig = CKKSCompiler(
+        {"warn_vec_size": "false"}).compile(prog)
+    pub, _ = generate_keys(params)
+    img = np.zeros(prog.vec_size)
+    img[:784] = np.random.default_rng(SEED).uniform(0, 1, 784)
+    enc = pub.encrypt({"image": img.tolist()}, sig)
+    t0 = time.perf_counter()
+    pub.execute(compiled, enc)
+    first_s = time.perf_counter() - t0
+    (entry,) = pub._executor_for(compiled)._get_torch_program()._captured \
+        .values()
+    captured = pub.execute(compiled, enc)
+    times = execute_ms(pub, compiled, enc, reps)
+    TorchProgram._capture = False
+    try:
+        eager = pub.execute(compiled, enc)
+        eager_times = execute_ms(pub, compiled, enc, reps)
+    finally:
+        TorchProgram._capture = True
+    check_equal("cryptonets: eager against captured", captured, eager)
+    res = {"n": params.poly_modulus_degree, "first_execute_s": first_s,
+           "key_switches": entry.launches["key_switches"],
+           "epilogue_cluster": entry.launches["ks_epilogue_cluster"],
+           "execute_ms_median": statistics.median(times),
+           "eager_ms_median": statistics.median(eager_times)}
+    print("path cryptonets " + json.dumps(res), flush=True)
     return res
 
 
@@ -2465,6 +2523,7 @@ def main() -> int:
     print("captured_vs_eager " + json.dumps(
         {name: both(paths[name]) for name, *_ in programs}), flush=True)
 
+    cryptonets_phase()
     compiled, pub, enc, sig, ref_out = sobel
     structured = structured_run(pub, compiled, enc, ref_out)
     print("path sobel_structured " + json.dumps(structured), flush=True)

@@ -1940,6 +1940,7 @@ def _counters():
             "ntt_inv_rows": ntt_cuda.ROWS["ntt_inv"],
             "ks_launches": ks_cuda.LAUNCHES,
             "ks_max_batch": ks_cuda.MAX_BATCH,
+            "ks_epilogue_cluster": ks_cuda.EPILOGUE_CLUSTER,
             "modmath_launches": modmath_cuda.LAUNCHES,
             "modmath_ops": modmath_cuda.OPS,
             "ntt_shard_launches": ntt_shard_cuda.LAUNCHES,

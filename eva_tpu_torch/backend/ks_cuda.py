@@ -10,7 +10,10 @@ ks.ks_epilogue_plain.
 `LAUNCHES` counts wrapper calls that launched: "ks_mac" one kernel (a
 grid of thread-block clusters), "ks_epilogue" its two (the key-row
 inverse NTTs, and the row pass launched as their programmatic
-dependent).
+dependent; both grids of thread-block clusters, one a row).
+`EPILOGUE_CLUSTER` counts the epilogue calls by the cluster size C they
+launched with (ks.cu's epilogue_cluster: from the ring size and the rows
+by waves, 1 at N = 1024, 8 at batch 1 from N = 8192 up).
 `MAX_BATCH` keeps the largest batch each wrapper launched with."""
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import os
 import threading
+from collections import Counter
 
 import numpy as np
 import torch
@@ -30,6 +34,7 @@ LIB_PATH = os.path.join(cuda_lib.BUILD_DIR, "libeva_ks.so")
 
 LAUNCHES = {"ks_mac": 0, "ks_epilogue": 0}
 MAX_BATCH = {"ks_mac": 0, "ks_epilogue": 0}
+EPILOGUE_CLUSTER = Counter()
 
 _lib = None
 _ready_devices = set()  # devices whose kernels got the shared-memory opt-in
@@ -52,9 +57,10 @@ def _load(device: torch.device):
             lib.eva_ks_init.restype = i
             lib.eva_ks_mac.argtypes = [p] * 12 + [i] * 6 + [p]
             lib.eva_ks_mac.restype = i
-            lib.eva_ks_epilogue.argtypes = [p] * 13 + [i] * 5 + [p]
+            lib.eva_ks_epilogue.argtypes = ([p] * 13 + [i] * 5
+                                            + [ctypes.POINTER(i), p])
             lib.eva_ks_epilogue.restype = i
-            lib.eva_ks_info.argtypes = [i, i, ctypes.POINTER(i)]
+            lib.eva_ks_info.argtypes = [i, i, i, ctypes.POINTER(i)]
             lib.eva_ks_info.restype = i
             lib.eva_ks_mac_cluster.argtypes = [i, i, i, ctypes.POINTER(i)]
             lib.eva_ks_mac_cluster.restype = i
@@ -66,22 +72,33 @@ def _load(device: torch.device):
     return _lib
 
 
-def kernel_info(logn: int, device: torch.device, n_key: int = 2) -> dict:
+def kernel_info(logn: int, device: torch.device, n_key: int = 2,
+                n_ext: int = 13) -> dict:
     """Resource use of the kernels at a ring of 2^logn on `device`:
     registers and local (spill) bytes per thread of each kernel (the row
-    kernel for `n_key` key primes), threads per block, and how many
-    clusters of c MAC blocks the device holds at once (c = 1 .. 8)."""
+    kernel for `n_key` key primes); threads per MAC block and how many
+    clusters of c MAC blocks the device holds at once (c = 1 .. 8); for
+    each epilogue kernel, the cluster size an epilogue over an extended
+    basis of `n_ext` rows (13: Sobel's level 0) takes at batch 1 and its
+    threads per block; how many clusters of C row-kernel blocks the device
+    holds at once (C = 1, 2, 4, 8; 0 where the ring does not split into C
+    segments of >= 1024 words)."""
     lib = _load(device)
-    out = (ctypes.c_int * 15)()
+    out = (ctypes.c_int * 21)()
     with torch.cuda.device(device):
         cuda_lib.raise_on("CUDA key switch info",
-                          lib.eva_ks_info(logn, n_key, out))
+                          lib.eva_ks_info(logn, n_key, n_ext, out))
     names = ("ks_mac_cluster_kernel", "ks_epilogue_key_kernel",
              "ks_epilogue_row_kernel")
-    return {"threads": out[6],
+    info = {"threads": out[6],
             **{k: {"registers": out[2 * j], "local_bytes": out[2 * j + 1]}
                for j, k in enumerate(names)},
-            "mac_max_active_clusters": {c: out[6 + c] for c in range(1, 9)}}
+            "mac_max_active_clusters": {c: out[6 + c] for c in range(1, 9)},
+            "epilogue_max_active_clusters": {1 << c: out[17 + c]
+                                             for c in range(4)}}
+    for k in names[1:]:
+        info[k].update(cluster=out[15], threads=out[16])
+    return info
 
 
 def mac_cluster(logn: int, n_groups: int, clusters: int,
@@ -183,6 +200,8 @@ def ks_epilogue(acc0, acc1, ext_ops, n_key: int, out_ntt: bool):
     if not 1 <= n_key <= min(MAX_KEY_PRIMES, n_ext - 1):
         raise ValueError(f"{name}: n_key={n_key} not in [1, "
                          f"{min(MAX_KEY_PRIMES, n_ext - 1)}]")
+    if acc0.data_ptr() % 16 or acc1.data_ptr() % 16:
+        raise ValueError(f"{name}: tensor data not 16-byte aligned")
     batch = acc0.shape[0]
     n_out = n_ext - n_key
     out0 = torch.empty((batch, n_out, n), dtype=torch.int32,
@@ -195,14 +214,16 @@ def ks_epilogue(acc0, acc1, ext_ops, n_key: int, out_ntt: bool):
     lib, tab = _load(acc0.device), ext_ops.kernel_tables()
     pdiv = ext_ops.const(("ks_pdiv", n_key), lambda: _pdiv(ext_ops, n_key))
     stream = torch.cuda.current_stream(acc0.device).cuda_stream
+    cluster = ctypes.c_int(0)
     err = lib.eva_ks_epilogue(
         acc0.data_ptr(), acc1.data_ptr(), scratch.data_ptr(),
         out0.data_ptr(), out1.data_ptr(), tab["q"].data_ptr(),
         tab["wi"].data_ptr(), tab["wpi"].data_ptr(), tab["ninv"].data_ptr(),
         tab["ninvp"].data_ptr(), tab["wf"].data_ptr(), tab["wpf"].data_ptr(),
         pdiv.data_ptr(), batch, n_ext, n_key, int(out_ntt), ext_ops.logn,
-        stream)
+        ctypes.byref(cluster), stream)
     cuda_lib.raise_on(name, err)
     LAUNCHES["ks_epilogue"] += 1
+    EPILOGUE_CLUSTER[cluster.value] += 1
     MAX_BATCH["ks_epilogue"] = max(MAX_BATCH["ks_epilogue"], batch)
     return out0, out1

@@ -50,6 +50,8 @@
 //   keeps every block's shared memory alive until the others have read it.
 // Device memory sees each element read once and written once, as in a
 // block-per-row kernel; C blocks on C SMs share the 14 stages of a row.
+// The segment passes live in ntt_common.cuh (seg_fwd_local, seg_inv_row),
+// which ks.cu's epilogue shares.
 // C (choose_cluster) is the largest of 1, 2, 4, 8 with L >= 1024 (so
 // N = 1024 takes C = 1, N >= 8192 takes 8) of which the card holds a
 // cluster (cudaOccupancyMaxActiveClusters, asked once per ring size and
@@ -67,75 +69,11 @@
 
 #include "ntt_common.cuh"
 
-namespace cg = cooperative_groups;
-
 namespace {
 
 using namespace eva;
 
-constexpr int kMaxClusterLog = 3;  // C = 8: the portable cluster size
-constexpr int kMinSegLog = 10;     // segments of at least 1024 words
 constexpr int kMaxRows = 1 << 27;  // rows * 8 blocks fit the grid
-
-// The split phases of the cluster barrier. A thread arrives, may go on
-// with work that does not depend on the other blocks, then waits; arrive
-// releases this thread's shared-memory writes to the cluster, and wait
-// acquires the others'.
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
-}
-
-// Where a kernel's block stands: its cluster (C = 2^c blocks, rank b),
-// row, prime and segment.
-struct Seg {
-  int c, C, b, logl, L, p;
-  size_t row;  // the row's first element in device memory
-
-  __device__ Seg(cg::cluster_group& cluster, int n_sub, int logn) {
-    C = (int)cluster.num_blocks();
-    b = (int)cluster.block_rank();
-    c = __ffs(C) - 1;
-    logl = logn - c;
-    L = 1 << logl;
-    const int r = blockIdx.x >> c;
-    p = r % n_sub;
-    row = (size_t)r << logn;
-  }
-};
-
-// The forward's last pass over a segment of L: its groups of 2^RP are
-// contiguous (group g at [g 2^RP, (g + 1) 2^RP), twiddle blocks led by
-// kb0 + g), and go from registers straight to dst as 16-byte words (a
-// group of 2 as one 8-byte word).
-template <int RP>
-__device__ __forceinline__ void fwd_store_pass(
-    const uint32_t* s, uint32_t* __restrict__ dst,
-    const uint32_t* __restrict__ wr, const uint32_t* __restrict__ wpr,
-    uint32_t q, int L, int kb0) {
-  constexpr int G = 1 << RP;
-  for (int g = threadIdx.x; g < (L >> RP); g += blockDim.x) {
-    uint32_t v[G];
-#pragma unroll
-    for (int u = 0; u < G; ++u) v[u] = s[swz((g << RP) + u)];
-    fwd_group<RP>(v, wr, wpr, q, kb0 + g);
-    if constexpr (G >= 4) {
-      uint4* d = reinterpret_cast<uint4*>(dst + (g << RP));
-#pragma unroll
-      for (int u = 0; u < G; u += 4)
-        d[u / 4] = make_uint4(v[u], v[u + 1], v[u + 2], v[u + 3]);
-    } else {
-      *reinterpret_cast<uint2*>(dst + (g << RP)) = make_uint2(v[0], v[1]);
-    }
-  }
-}
 
 __global__ void __launch_bounds__(1024)
     ntt_fwd_kernel(const uint32_t* __restrict__ in,
@@ -148,11 +86,14 @@ __global__ void __launch_bounds__(1024)
   // into its shared memory: arrive now, wait before the first such write.
   cluster_arrive_relaxed();
   cg::cluster_group cluster = cg::this_cluster();
-  const Seg sg(cluster, n_sub, logn);
-  const uint32_t q = qs[sg.p];
-  const uint32_t* wr = w + ((size_t)sg.p << logn);
-  const uint32_t* wpr = wp + ((size_t)sg.p << logn);
-  const uint32_t* src = in + sg.row;
+  const Seg sg(cluster, logn);
+  const int r = blockIdx.x >> sg.c;
+  const int p = r % n_sub;
+  const size_t row = (size_t)r << logn;
+  const uint32_t q = qs[p];
+  const uint32_t* wr = w + ((size_t)p << logn);
+  const uint32_t* wpr = wp + ((size_t)p << logn);
+  const uint32_t* src = in + row;
 
   // The first 3 stages, on the S-strided groups of the whole row; the
   // owner of element u of a group is segment u >> (3 - c).
@@ -171,27 +112,15 @@ __global__ void __launch_bounds__(1024)
     if (j0 == 0) cluster_wait();
     if (j < per) {
 #pragma unroll
-      for (int u = 0; u < G0; ++u) {
-        const int e = g + (u << ls);
-        cluster.map_shared_rank(s, e >> sg.logl)[swz(e & (sg.L - 1))] = v[u];
-      }
+      for (int u = 0; u < G0; ++u)
+        *seg_word(cluster, s, sg, g + (u << ls)) = v[u];
     }
   }
   cluster_arrive();
   cluster_wait();
 
-  // The other stages, segment-local: full passes, then the last pass (1
-  // to 3 stages; its groups are contiguous) straight to device memory.
-  const int top = sg.C + sg.b;
-  int s0 = kPassLog - sg.c;
-  const int tail = (sg.logl - s0) % kPassLog;
-  const int last = tail ? tail : kPassLog;
-  for (; s0 + last < sg.logl; s0 += kPassLog)
-    ntt_fwd_pass<kPassLog>(s, wr, wpr, q, sg.logl, s0, top);
-  uint32_t* dst = out + sg.row + ((size_t)sg.b << sg.logl);
-  if (last == 1) fwd_store_pass<1>(s, dst, wr, wpr, q, sg.L, top << s0);
-  if (last == 2) fwd_store_pass<2>(s, dst, wr, wpr, q, sg.L, top << s0);
-  if (last == 3) fwd_store_pass<3>(s, dst, wr, wpr, q, sg.L, top << s0);
+  // The other stages, segment-local, the last straight to device memory.
+  seg_fwd_local(s, out + row, wr, wpr, q, sg);
 }
 
 __global__ void __launch_bounds__(1024)
@@ -204,101 +133,23 @@ __global__ void __launch_bounds__(1024)
                    const uint32_t* __restrict__ ninvp, int n_sub, int logn) {
   extern __shared__ uint32_t s[];
   cg::cluster_group cluster = cg::this_cluster();
-  const Seg sg(cluster, n_sub, logn);
-  const uint32_t q = qs[sg.p];
-  const uint32_t* wr = w + ((size_t)sg.p << logn);
-  const uint32_t* wpr = wp + ((size_t)sg.p << logn);
-  const int top = sg.C + sg.b;
-
-  // The first log2 N - 3 stages, segment-local. The first pass loads its
-  // contiguous groups of 8 from device memory as 16-byte words.
-  const uint32_t* src = in + sg.row + ((size_t)sg.b << sg.logl);
-  for (int g = threadIdx.x; g < (sg.L >> kPassLog); g += blockDim.x) {
-    uint32_t v[1 << kPassLog];
-    const uint4* d = reinterpret_cast<const uint4*>(src + (g << kPassLog));
-#pragma unroll
-    for (int u = 0; u < (1 << kPassLog); u += 4) {
-      const uint4 x = d[u / 4];
-      v[u] = x.x;
-      v[u + 1] = x.y;
-      v[u + 2] = x.z;
-      v[u + 3] = x.w;
-    }
-    inv_group<kPassLog>(v, wr, wpr, q,
-                        (top << (sg.logl - kPassLog)) + g, false, 0, 0);
-#pragma unroll
-    for (int u = 0; u < (1 << kPassLog); ++u)
-      s[swz((g << kPassLog) + u)] = v[u];
-  }
-  __syncthreads();
-  // The short pass, if any, comes second: at stride 8 a pass of 3 stages
-  // would put two threads of a warp on one bank, a pass of 2 does not.
-  const int ls = logn - kPassLog;  // log2 S: local stages end at t = S / 2
-  const int tail = (ls - kPassLog) % kPassLog;
-  if (tail == 2)
-    ntt_inv_pass<2>(s, wr, wpr, q, 0, 0, sg.logl, kPassLog, top, false);
-  if (tail == 1)
-    ntt_inv_pass<1>(s, wr, wpr, q, 0, 0, sg.logl, kPassLog, top, false);
-  for (int s0 = kPassLog + tail; s0 < ls; s0 += kPassLog)
-    ntt_inv_pass<kPassLog>(s, wr, wpr, q, 0, 0, sg.logl, s0, top, false);
-
-  // The last 3 stages on the S-strided groups, read through DSMEM once
-  // every segment is done, N^-1 folded into the final stage.
-  cluster_arrive();
-  cluster_wait();
-  constexpr int G0 = 1 << kPassLog;
-  const int per = 1 << (ls - sg.c);
-  const uint32_t nv = ninv[sg.p], nvp = ninvp[sg.p];
-  uint32_t* dst = out + sg.row;
-  for (int j = threadIdx.x; j < per; j += blockDim.x) {
-    const int g = sg.b * per + j;
-    uint32_t v[G0];
-#pragma unroll
-    for (int u = 0; u < G0; ++u) {
-      const int e = g + (u << ls);
-      v[u] = cluster.map_shared_rank(s, e >> sg.logl)[swz(e & (sg.L - 1))];
-    }
-    inv_group<kPassLog>(v, wr, wpr, q, 1, true, nv, nvp);
-#pragma unroll
-    for (int u = 0; u < G0; ++u) dst[g + (u << ls)] = v[u];
-  }
-  // No block exits while another may still read its shared memory.
-  cluster_arrive();
-  cluster_wait();
+  const Seg sg(cluster, logn);
+  const int r = blockIdx.x >> sg.c;
+  const int p = r % n_sub;
+  const size_t row = (size_t)r << logn;
+  seg_inv_row(cluster, s, in + row, out + row, w + ((size_t)p << logn),
+              wp + ((size_t)p << logn), qs[p], ninv + p, ninvp + p, sg, logn);
 }
 
 const void* kernel(bool inv) {
   return inv ? (const void*)ntt_inv_kernel : (const void*)ntt_fwd_kernel;
 }
 
-// Whether a ring of 2^logn splits into 2^c segments, and the threads per
-// block then (0 when it does not).
-int seg_threads(int logn, int c) {
-  if (logn < kMinLogN || logn > kMaxLogN || c < 0 || c > kMaxClusterLog ||
-      logn - c < kMinSegLog)
-    return 0;
-  const int t = 1 << (logn - c - kPassLog);
-  return t < 1024 ? t : 1024;
-}
-
 // A launch of `rows` rows in clusters of 2^c blocks.
-struct Launch {
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-
-  Launch(int logn, int c, int rows, cudaStream_t stream) : cfg(), attr() {
-    cfg.gridDim = dim3(rows << c);
-    cfg.blockDim = dim3(seg_threads(logn, c));
-    cfg.dynamicSmemBytes = sizeof(uint32_t) << (logn - c);
-    cfg.stream = stream;
-    attr.id = cudaLaunchAttributeClusterDimension;
-    attr.val.clusterDim.x = 1 << c;
-    attr.val.clusterDim.y = 1;
-    attr.val.clusterDim.z = 1;
-    cfg.attrs = &attr;
-    cfg.numAttrs = 1;
-  }
-  Launch(const Launch&) = delete;
+struct Launch : ClusterLaunch {
+  Launch(int logn, int c, int rows, cudaStream_t stream)
+      : ClusterLaunch(dim3(rows << c), seg_threads(logn, c),
+                      sizeof(uint32_t) << (logn - c), 1 << c, stream) {}
 };
 
 // How many clusters of 2^c blocks of the forward (inv false) or inverse

@@ -1,7 +1,8 @@
 // The register-radix negacyclic NTT, and the 32-bit modular arithmetic
-// under it, for Hopper (sm_90a). Included by ntt.cu (the NTT kernels, a
-// row split over a thread-block cluster) and ks.cu (the fused key-switch
-// kernels, a whole row in one block: ntt_fwd_row / ntt_inv_row). Both run
+// under it, for Hopper (sm_90a). Included by ntt.cu (the NTT kernels) and
+// ks.cu (the fused key-switch kernels: the MAC's whole row in one block,
+// ntt_fwd_row; the epilogue's rows split over a thread-block cluster, as
+// ntt.cu's, through the cluster passes at the end of this file). Both run
 // the Harvey merged-psi schedule of the host tables
 // (eva_tpu_torch/backend/tables.py _fwd_merged / _inv_merged) and give the
 // same residues. Forward takes natural order in and gives bit-reversed
@@ -42,9 +43,14 @@
 
 #pragma once
 
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+
 #include <cstdint>
 
 namespace eva {
+
+namespace cg = cooperative_groups;
 
 constexpr int kMaxLogN = 15;  // N = 32768: 128 KB of shared memory
 constexpr int kMinLogN = 10;  // N = 1024
@@ -165,15 +171,14 @@ __device__ __forceinline__ void ntt_fwd_pass(uint32_t* s,
   __syncthreads();
 }
 
-// One inverse pass, as ntt_fwd_pass; fold when the pass holds the
-// transform's final stage.
+// One inverse pass, as ntt_fwd_pass (never the transform's final stage:
+// that runs on the S-strided groups, seg_inv_row).
 template <int RP>
 __device__ __forceinline__ void ntt_inv_pass(uint32_t* s,
                                              const uint32_t* __restrict__ wr,
                                              const uint32_t* __restrict__ wpr,
-                                             uint32_t q, uint32_t nv,
-                                             uint32_t nvp, int logn, int s0,
-                                             int top, bool fold) {
+                                             uint32_t q, int logn, int s0,
+                                             int top) {
   constexpr int G = 1 << RP;
   const int lt = s0;
   const int groups = 1 << (logn - RP);
@@ -183,8 +188,8 @@ __device__ __forceinline__ void ntt_inv_pass(uint32_t* s,
     uint32_t v[G];
 #pragma unroll
     for (int u = 0; u < G; ++u) v[u] = s[swz(base + (u << lt))];
-    inv_group<RP>(v, wr, wpr, q, (top << (logn - s0 - RP)) + outer, fold,
-                  nv, nvp);
+    inv_group<RP>(v, wr, wpr, q, (top << (logn - s0 - RP)) + outer, false,
+                  0, 0);
 #pragma unroll
     for (int u = 0; u < G; ++u) s[swz(base + (u << lt))] = v[u];
   }
@@ -205,31 +210,215 @@ __device__ __forceinline__ void ntt_fwd_row(uint32_t* s,
   if (logn - s0 == 1) ntt_fwd_pass<1>(s, wr, wpr, q, logn, s0, 1);
 }
 
-// Inverse NTT of the whole swizzled row s, as ntt_fwd_row. The short pass
-// comes last, so the final stage's N^-1 fold is in it.
-__device__ __forceinline__ void ntt_inv_row(uint32_t* s,
-                                            const uint32_t* __restrict__ wr,
-                                            const uint32_t* __restrict__ wpr,
-                                            uint32_t q, uint32_t nv,
-                                            uint32_t nvp, int logn) {
-  int s0 = 0;
-  for (; s0 + kPassLog <= logn; s0 += kPassLog)
-    ntt_inv_pass<kPassLog>(s, wr, wpr, q, nv, nvp, logn, s0, 1,
-                           s0 + kPassLog == logn);
-  if (logn - s0 == 2)
-    ntt_inv_pass<2>(s, wr, wpr, q, nv, nvp, logn, s0, 1, true);
-  if (logn - s0 == 1)
-    ntt_inv_pass<1>(s, wr, wpr, q, nv, nvp, logn, s0, 1, true);
-}
+// Threads per block of a segment of 2^(logn - c) words (a row cut into
+// 2^c): 8 words per thread per pass, at most 1024; 0 when the ring is out
+// of range or the segment would be shorter than 2^kMinSegLog words.
+// seg_threads(logn, 0) is a whole row in one block.
+constexpr int kMaxClusterLog = 3;  // C = 8: the portable cluster size
+constexpr int kMinSegLog = 10;     // segments of at least 1024 words
 
-// Threads per block of a whole row in one block: two groups of
-// 2^kPassLog words per thread at N = 16384, one at N <= 8192; 0 when logn
-// is out of range.
-inline int row_threads(int logn) {
-  if (logn < kMinLogN || logn > kMaxLogN) return 0;
-  const int t = 1 << (logn - kPassLog);
+inline int seg_threads(int logn, int c) {
+  if (logn < kMinLogN || logn > kMaxLogN || c < 0 || c > kMaxClusterLog ||
+      logn - c < kMinSegLog)
+    return 0;
+  const int t = 1 << (logn - c - kPassLog);
   return t < 1024 ? t : 1024;
 }
+
+// A row split over a thread-block cluster (ntt.cu's K1 and K2, ks.cu's
+// epilogue). The row of N = 2^logn is cut into C = 2^c segments of L =
+// N / C words, one per block of a cluster of C: rank b holds [b L,
+// (b + 1) L) in its shared memory (4L bytes, swizzled as swz). Write
+// S = N / 8. The 3 stages of the largest strides pair the S-strided
+// groups {g + u S : u < 8}, across segments for log2 C of them: block b
+// takes groups [b S / C, (b + 1) S / C) and reads or writes each word in
+// the segment that holds it (seg_word: distributed shared memory). Every
+// other stage is local to a segment: register passes whose twiddle
+// blocks are led by top = C + b (see ntt_fwd_pass). The forward runs the
+// strided stages first and the inverse runs them last, on the same
+// groups.
+
+// The split phases of the cluster barrier. A thread arrives, may go on
+// with work that does not depend on the other blocks, then waits; arrive
+// releases this thread's shared-memory writes to the cluster, and wait
+// acquires the others'.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+// Where a block stands: its cluster (C = 2^c blocks, rank b) and its
+// segment of L = 2^logl words.
+struct Seg {
+  int c, C, b, logl, L;
+
+  __device__ Seg(cg::cluster_group& cluster, int logn) {
+    C = (int)cluster.num_blocks();
+    b = (int)cluster.block_rank();
+    c = __ffs(C) - 1;
+    logl = logn - c;
+    L = 1 << logl;
+  }
+};
+
+// Word e of the row, in the shared memory of the segment that holds it.
+__device__ __forceinline__ uint32_t* seg_word(cg::cluster_group& cluster,
+                                              uint32_t* s, const Seg& sg,
+                                              int e) {
+  return cluster.map_shared_rank(s, e >> sg.logl) + swz(e & (sg.L - 1));
+}
+
+// The forward's last pass over a segment of L: its groups of 2^RP are
+// contiguous (group g at [g 2^RP, (g + 1) 2^RP), twiddle blocks led by
+// kb0 + g), and go from registers straight to dst as 16-byte words (a
+// group of 2 as one 8-byte word).
+template <int RP>
+__device__ __forceinline__ void fwd_store_pass(
+    const uint32_t* s, uint32_t* __restrict__ dst,
+    const uint32_t* __restrict__ wr, const uint32_t* __restrict__ wpr,
+    uint32_t q, int L, int kb0) {
+  constexpr int G = 1 << RP;
+  for (int g = threadIdx.x; g < (L >> RP); g += blockDim.x) {
+    uint32_t v[G];
+#pragma unroll
+    for (int u = 0; u < G; ++u) v[u] = s[swz((g << RP) + u)];
+    fwd_group<RP>(v, wr, wpr, q, kb0 + g);
+    if constexpr (G >= 4) {
+      uint4* d = reinterpret_cast<uint4*>(dst + (g << RP));
+#pragma unroll
+      for (int u = 0; u < G; u += 4)
+        d[u / 4] = make_uint4(v[u], v[u + 1], v[u + 2], v[u + 3]);
+    } else {
+      *reinterpret_cast<uint2*>(dst + (g << RP)) = make_uint2(v[0], v[1]);
+    }
+  }
+}
+
+// The forward's segment-local stages, once every segment holds its words
+// after the strided stages (a cluster barrier): full passes, then the
+// last pass (1 to 3 stages; its groups are contiguous) straight to this
+// segment's place in the device-memory row dst_row.
+__device__ __forceinline__ void seg_fwd_local(
+    uint32_t* s, uint32_t* __restrict__ dst_row,
+    const uint32_t* __restrict__ wr, const uint32_t* __restrict__ wpr,
+    uint32_t q, const Seg& sg) {
+  const int top = sg.C + sg.b;
+  int s0 = kPassLog - sg.c;
+  const int tail = (sg.logl - s0) % kPassLog;
+  const int last = tail ? tail : kPassLog;
+  for (; s0 + last < sg.logl; s0 += kPassLog)
+    ntt_fwd_pass<kPassLog>(s, wr, wpr, q, sg.logl, s0, top);
+  uint32_t* dst = dst_row + ((size_t)sg.b << sg.logl);
+  if (last == 1) fwd_store_pass<1>(s, dst, wr, wpr, q, sg.L, top << s0);
+  if (last == 2) fwd_store_pass<2>(s, dst, wr, wpr, q, sg.L, top << s0);
+  if (last == 3) fwd_store_pass<3>(s, dst, wr, wpr, q, sg.L, top << s0);
+}
+
+// The inverse's first log2 N - 3 stages, segment-local, from this
+// segment's place in the device-memory row src_row: the first pass loads
+// its contiguous groups of 8 as 16-byte words. Returns after a
+// __syncthreads(), before the strided stages.
+__device__ __forceinline__ void seg_inv_local(
+    uint32_t* s, const uint32_t* __restrict__ src_row,
+    const uint32_t* __restrict__ wr, const uint32_t* __restrict__ wpr,
+    uint32_t q, const Seg& sg, int logn) {
+  const int top = sg.C + sg.b;
+  const uint32_t* src = src_row + ((size_t)sg.b << sg.logl);
+  for (int g = threadIdx.x; g < (sg.L >> kPassLog); g += blockDim.x) {
+    uint32_t v[1 << kPassLog];
+    const uint4* d = reinterpret_cast<const uint4*>(src + (g << kPassLog));
+#pragma unroll
+    for (int u = 0; u < (1 << kPassLog); u += 4) {
+      const uint4 x = d[u / 4];
+      v[u] = x.x;
+      v[u + 1] = x.y;
+      v[u + 2] = x.z;
+      v[u + 3] = x.w;
+    }
+    inv_group<kPassLog>(v, wr, wpr, q,
+                        (top << (sg.logl - kPassLog)) + g, false, 0, 0);
+#pragma unroll
+    for (int u = 0; u < (1 << kPassLog); ++u)
+      s[swz((g << kPassLog) + u)] = v[u];
+  }
+  __syncthreads();
+  // The short pass, if any, comes second: at stride 8 a pass of 3 stages
+  // would put two threads of a warp on one bank, a pass of 2 does not.
+  const int ls = logn - kPassLog;  // log2 S: local stages end at t = S / 2
+  const int tail = (ls - kPassLog) % kPassLog;
+  if (tail == 2) ntt_inv_pass<2>(s, wr, wpr, q, sg.logl, kPassLog, top);
+  if (tail == 1) ntt_inv_pass<1>(s, wr, wpr, q, sg.logl, kPassLog, top);
+  for (int s0 = kPassLog + tail; s0 < ls; s0 += kPassLog)
+    ntt_inv_pass<kPassLog>(s, wr, wpr, q, sg.logl, s0, top);
+}
+
+// A whole inverse over the cluster, src_row to dst_row: the local stages,
+// a cluster barrier, then the last 3 stages on this block's S-strided
+// groups read through distributed shared memory, N^-1 (the Shoup pair
+// *nv, *nvp, read after the barrier) folded into the final stage, stored
+// to dst_row. A closing cluster barrier keeps every block's shared memory
+// alive until the others have read it.
+__device__ __forceinline__ void seg_inv_row(
+    cg::cluster_group& cluster, uint32_t* s,
+    const uint32_t* __restrict__ src_row, uint32_t* __restrict__ dst_row,
+    const uint32_t* __restrict__ wr, const uint32_t* __restrict__ wpr,
+    uint32_t q, const uint32_t* nv, const uint32_t* nvp, const Seg& sg,
+    int logn) {
+  seg_inv_local(s, src_row, wr, wpr, q, sg, logn);
+  cluster_arrive();
+  cluster_wait();
+  const uint32_t nv0 = *nv, nvp0 = *nvp;
+  constexpr int G0 = 1 << kPassLog;
+  const int ls = logn - kPassLog;
+  const int per = 1 << (ls - sg.c);
+  for (int j = threadIdx.x; j < per; j += blockDim.x) {
+    const int g = sg.b * per + j;
+    uint32_t v[G0];
+#pragma unroll
+    for (int u = 0; u < G0; ++u)
+      v[u] = *seg_word(cluster, s, sg, g + (u << ls));
+    inv_group<kPassLog>(v, wr, wpr, q, 1, true, nv0, nvp0);
+#pragma unroll
+    for (int u = 0; u < G0; ++u) dst_row[g + (u << ls)] = v[u];
+  }
+  // No block exits while another may still read its shared memory.
+  cluster_arrive();
+  cluster_wait();
+}
+
+// A launch of a grid in thread-block clusters of C blocks along x
+// (cudaLaunchKernelEx); with pdl, as the programmatic dependent of the
+// grid before it on the stream (it may start once every block of that
+// grid has run griddepcontrol.launch_dependents).
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[2];
+
+  ClusterLaunch(dim3 grid, int threads, size_t smem, int C,
+                cudaStream_t stream, bool pdl = false)
+      : cfg(), attr() {
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[1].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = pdl ? 2 : 1;
+  }
+  ClusterLaunch(const ClusterLaunch&) = delete;
+};
 
 // Dynamic shared memory of one row at the largest ring (128 KB), above
 // the 48 KB default: each kernel is opted in once per device.

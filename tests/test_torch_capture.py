@@ -160,15 +160,19 @@ def test_capture_counts_one_replay_and_restores_the_counters(monkeypatch):
                                            "ntt_inv": Counter()})
     monkeypatch.setattr(ks_cuda, "MAX_BATCH", {"ks_mac": 4,
                                                "ks_epilogue": 0})
+    monkeypatch.setattr(ks_cuda, "EPILOGUE_CLUSTER", Counter({1: 3}))
     saved = et._take_counts()
     assert saved["ntt_launches"] == {"ntt_fwd": 7, "ntt_inv": 1}
     ntt_cuda.LAUNCHES["ntt_fwd"] += 2
     ntt_cuda.ROWS["ntt_fwd"][11] += 2
     ks_cuda.MAX_BATCH["ks_mac"] = 1
+    ks_cuda.EPILOGUE_CLUSTER[8] += 2
     counted = et._take_counts(saved)
     assert counted["ntt_launches"] == {"ntt_fwd": 2}
     assert counted["ntt_fwd_rows"] == {11: 2}
+    assert counted["ks_epilogue_cluster"] == {8: 2}
     assert ntt_cuda.LAUNCHES == {"ntt_fwd": 7, "ntt_inv": 1}
+    assert ks_cuda.EPILOGUE_CLUSTER == {1: 3}
     assert ks_cuda.MAX_BATCH["ks_mac"] == 4
     entry = et._Captured({}, {}, {})
     entry.launches = counted
@@ -177,6 +181,7 @@ def test_capture_counts_one_replay_and_restores_the_counters(monkeypatch):
     assert ntt_cuda.LAUNCHES == {"ntt_fwd": 9, "ntt_inv": 1}
     assert ks_cuda.MAX_BATCH["ks_mac"] == 4
     assert ntt_cuda.ROWS["ntt_fwd"] == {2: 1, 11: 2}
+    assert ks_cuda.EPILOGUE_CLUSTER == {1: 3, 8: 2}
 
 
 def test_host_phase_skips_constants_of_cached_encodes():

@@ -203,6 +203,69 @@ def test_cuda_key_switch_cluster_size_reported_as_launched(cuda):
         ks_cuda.mac_cluster(9, 6, 13, cuda)
 
 
+def _epilogue_inputs(cuda, n, n_key, batch, n_out=6):
+    """Random accumulators [B, n_out + n_key, N] over ~30-bit primes (the
+    last n_key the key primes) and their tables on the card."""
+    primes = [q for e in build_chain([60] * ((n_out + n_key + 1) // 2), n)
+              for q in e.primes][:n_out + n_key]
+    ext = level_ops(primes, n, cuda)
+    acc0, acc1 = (_planes(n + 7 * n_key + batch + s, primes, (batch, n))
+                  .to(cuda) for s in (0, 1))
+    return acc0, acc1, ext
+
+
+# (N, n_key, B): every ring the cluster chooser splits differently (C = 1
+# at N = 1024, up to 4 at 4096, 8 from 16384 up at B = 1), every division
+# width up to the kernels' eight key primes, and batches of one to eight.
+@pytest.mark.parametrize("batch", [1, 3, 8])
+@pytest.mark.parametrize("n_key", [1, 2, 4, 8])
+@pytest.mark.parametrize("n", [1024, 4096, 16384, 32768])
+def test_cuda_epilogue_matches_plain(cuda, n, n_key, batch):
+    """K5 with each row's inverse and forward NTT split over a cluster:
+    bit for bit the plain version's, out_ntt both ways, one call two
+    launches, counted under the cluster size it launched with."""
+    acc0, acc1, ext = _epilogue_inputs(cuda, n, n_key, batch)
+    for out_ntt in (True, False):
+        launches = ks_cuda.LAUNCHES["ks_epilogue"]
+        calls = sum(ks_cuda.EPILOGUE_CLUSTER.values())
+        got = ks.ks_epilogue(acc0, acc1, ext, n_key, out_ntt)
+        assert ks_cuda.LAUNCHES["ks_epilogue"] == launches + 1
+        assert sum(ks_cuda.EPILOGUE_CLUSTER.values()) == calls + 1
+        want = ks.ks_epilogue_plain(acc0, acc1, ext, n_key, out_ntt)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("n", [1024, 4096, 16384, 32768])
+def test_cuda_epilogue_reports_the_cluster_it_launched(cuda, n):
+    """At batch 1 the epilogue takes the largest cluster the ring splits
+    into (segments of >= 1024 words), kernel_info reports that size and
+    its threads per block for both kernels, and the counter records the
+    call under it."""
+    acc0, acc1, ext = _epilogue_inputs(cuda, n, 2, 1, n_out=11)
+    before = dict(ks_cuda.EPILOGUE_CLUSTER)
+    ks.ks_epilogue(acc0, acc1, ext, 2, True)
+    grew = {c: k - before.get(c, 0)
+            for c, k in ks_cuda.EPILOGUE_CLUSTER.items()
+            if k != before.get(c, 0)}
+    c = min(8, n // 1024)
+    assert grew == {c: 1}
+    info = ks_cuda.kernel_info(ext.logn, cuda, 2, 13)
+    for name in ("ks_epilogue_key_kernel", "ks_epilogue_row_kernel"):
+        assert info[name]["cluster"] == c
+        assert info[name]["threads"] == min(1024, n // c // 8)
+    assert info["epilogue_max_active_clusters"][c] > 0
+
+
+def test_cuda_epilogue_kernels_do_not_spill(cuda):
+    """Neither epilogue kernel spills at the rings the cells run, with up
+    to four key primes."""
+    for logn in (14, 15):
+        for n_key in (1, 2, 3, 4):
+            info = ks_cuda.kernel_info(logn, cuda, n_key, n_key + 11)
+            for name in ("ks_epilogue_key_kernel", "ks_epilogue_row_kernel"):
+                assert info[name]["local_bytes"] == 0, (logn, n_key, info)
+
+
 def test_cuda_key_switch_wrappers_reject_what_the_kernels_do_not_take(cuda):
     y, k0, k1, conv, owner, x_ntt, acc0, acc1, ext, n_key = _ks_inputs(
         cuda, 1024, 2)
@@ -225,6 +288,9 @@ def test_cuda_key_switch_wrappers_reject_what_the_kernels_do_not_take(cuda):
                             True)
     with pytest.raises(ValueError, match="n_key"):
         ks_cuda.ks_epilogue(acc0, acc1, ext, 0, True)
+    shifted = torch.cat([acc0.view(-1)[:1], acc0.view(-1)])[1:]
+    with pytest.raises(ValueError, match="aligned"):  # 16-byte row loads
+        ks_cuda.ks_epilogue(shifted.view(acc0.shape), acc1, ext, n_key, True)
 
 
 # -- the elementwise kernels E1-E3 (csrc/modmath.cu) --------------------------
